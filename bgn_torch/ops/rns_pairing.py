@@ -1,0 +1,310 @@
+"""Tate pairing, exponentiations and point normalization in RNS.
+
+The port's counterpart of `bgn_tpu/ops/rns_pairing.py` (same formulas,
+same static bounds, same call structure).  Field elements are RVals of
+float32 residues [2k, N] (fieldcore/rns.py).  The loops that the JAX
+package runs as Pallas kernels run here through the wrappers of
+ops/cuda_rns.py: a hand-written CUDA kernel for a CUDA tensor, the plain
+PyTorch version (built from the step functions below) for a CPU tensor.
+
+Static bound discipline (values < bound*p, headroom h >= 1024): loop
+invariants X, Y < 27p, Z < 6p, f_re, f_im < 9p; affine inputs < 3p.  The
+CUDA library (csrc/rns.cuh) hard-codes the r_sub bounds these functions
+compute; the kernels are compared with the plain versions bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fieldcore import limbs as lb
+from ..fieldcore import rns as rn
+from ..fieldcore.montgomery import MontCtx
+from ..fieldcore.rns import RNSCtx, RVal
+from .curve import AffinePoint
+
+# Loop-invariant bounds (multiples of p).
+_BX, _BY, _BZ, _BF = 27, 27, 6, 9
+
+
+def _pt(v):
+    """Wrap a point-coordinate residue array with its bound (3)."""
+    return RVal(v, 3)
+
+
+def _neg_coord(rns, v):
+    """Residues of (3p - value) for a bound-3 coordinate array: the
+    y-coordinate of the negated point, still bound 3."""
+    t = rns.kp[:, 3:4] - v
+    return torch.where(t < 0, t + rns.m, t)
+
+
+def _dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
+    """Fused Jacobian doubling + tangent line + f <- f^2 * line
+    (21 r_muls in 5 dependency layers)."""
+    X, Y, Z = RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
+    FR, FI = RVal(fr, _BF), RVal(fi, _BF)
+
+    def muls(*pairs):
+        return rn.r_mul_many(rns, pairs)
+
+    def add(u, v):
+        return rn.r_add(rns, u, v)
+
+    def sub(u, v):
+        return rn.r_sub(rns, u, v)
+
+    XX, ZZ, YY, YZ, t2, ab, sq_re = muls(
+        (X, X), (Z, Z), (Y, Y), (Y, Z), (X, Z), (FR, FI),
+        (add(FR, FI), sub(FR, FI)))
+    Z3 = add(YZ, YZ)
+    sq_im = add(ab, ab)
+
+    ZZZ, ZZZZ, YYYY, T = muls((Z, ZZ), (ZZ, ZZ), (YY, YY), (X, YY))
+    M = add(add(XX, add(XX, XX)), ZZZZ)
+    S = add(T, T)
+    S = add(S, S)                                  # 4 X Y^2
+
+    MM, t1, Z3ZZZ, Z3Y = muls((M, M), (ZZZ, xb), (Z3, ZZZ), (Z3, Y))
+    X3 = sub(sub(MM, S), S)
+    Y8 = add(YYYY, YYYY)
+    Y8 = add(Y8, Y8)
+    Y8 = add(Y8, Y8)
+
+    MSX3, Mt, l_im = muls((M, sub(S, X3)), (M, add(t1, t2)), (Z3ZZZ, yb))
+    Y3 = sub(MSX3, Y8)
+    l_re = sub(Mt, Z3Y)
+
+    m0, m1, m2 = muls((sq_re, l_re), (sq_im, l_im),
+                      (add(sq_re, sq_im), add(l_re, l_im)))
+    f_re = sub(m0, m1)
+    f_im = sub(sub(m2, m0), m1)
+
+    assert X3.bound <= _BX and Y3.bound <= _BY and Z3.bound <= _BZ
+    assert f_re.bound <= _BF and f_im.bound <= _BF
+    return X3.v, Y3.v, Z3.v, f_re.v, f_im.v
+
+
+def _add_step(rns: RNSCtx, X1, Y1, Z1, fr, fi, ax, ay, xb, yb):
+    """Fused mixed addition + line through V,A + f <- f * line
+    (17 r_muls)."""
+    X1, Y1, Z1 = RVal(X1, _BX), RVal(Y1, _BY), RVal(Z1, _BZ)
+    FR, FI = RVal(fr, _BF), RVal(fi, _BF)
+
+    def muls(*pairs):
+        return rn.r_mul_many(rns, pairs)
+
+    def add(u, v):
+        return rn.r_add(rns, u, v)
+
+    def sub(u, v):
+        return rn.r_sub(rns, u, v)
+
+    (ZZ,) = muls((Z1, Z1))
+    U2, ZZZ = muls((ax, ZZ), (Z1, ZZ))
+    (S2,) = muls((ay, ZZZ))
+    H = sub(U2, X1)
+    R = sub(S2, Y1)
+    HH, RR, Z3, Rx = muls((H, H), (R, R), (Z1, H), (R, add(xb, ax)))
+    HHH, V, Z3ya, l_im = muls((H, HH), (X1, HH), (Z3, ay), (Z3, yb))
+    X3 = sub(sub(sub(RR, HHH), V), V)
+    l_re = sub(Rx, Z3ya)
+    RVX3, Y1HHH = muls((R, sub(V, X3)), (Y1, HHH))
+    Y3 = sub(RVX3, Y1HHH)
+
+    m0, m1, m2 = muls((FR, l_re), (FI, l_im),
+                      (add(FR, FI), add(l_re, l_im)))
+    f_re = sub(m0, m1)
+    f_im = sub(sub(m2, m0), m1)
+
+    assert X3.bound <= _BX and Y3.bound <= _BY and Z3.bound <= _BZ
+    assert f_re.bound <= _BF and f_im.bound <= _BF
+    return X3.v, Y3.v, Z3.v, f_re.v, f_im.v
+
+
+def _add_pt(rns: RNSCtx, X1, Y1, Z1, ax, ay):
+    """Mixed addition v + a, no line math, no completeness selects
+    (valid when v != +-a and neither is the identity; 11 r_muls)."""
+    X1, Y1, Z1 = RVal(X1, _BX), RVal(Y1, _BY), RVal(Z1, _BZ)
+
+    def muls(*pairs):
+        return rn.r_mul_many(rns, pairs)
+
+    def sub(u, v):
+        return rn.r_sub(rns, u, v)
+
+    (ZZ,) = muls((Z1, Z1))
+    U2, ZZZ = muls((ax, ZZ), (Z1, ZZ))
+    (S2,) = muls((ay, ZZZ))
+    H = sub(U2, X1)
+    R = sub(S2, Y1)
+    HH, RR, Z3 = muls((H, H), (R, R), (Z1, H))
+    HHH, V = muls((H, HH), (X1, HH))
+    X3 = sub(sub(sub(RR, HHH), V), V)
+    RVX3, Y1HHH = muls((R, sub(V, X3)), (Y1, HHH))
+    Y3 = sub(RVX3, Y1HHH)
+    assert X3.bound <= _BX and Y3.bound <= _BY and Z3.bound <= _BZ
+    return X3.v, Y3.v, Z3.v
+
+
+def _scan_mul(rns: RNSCtx, z, reverse: bool):
+    """Inclusive product scan of z [2k, B] along the lanes (log-depth,
+    Hillis-Steele).  The association order differs from the JAX
+    package's; only the canonical limbs after the exit are compared."""
+    out = z.flip(1) if reverse else z
+    off = 1
+    while off < out.shape[1]:
+        prod = rn.r_mul(rns, RVal(out[:, :-off], 6), RVal(out[:, off:], 6)).v
+        out = torch.cat([out[:, :off], prod], dim=1)
+        off *= 2
+    return out.flip(1) if reverse else out
+
+
+def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
+    """Jacobian (raw residues [2k, B], bounds <= (27, 27, 6)) -> canonical
+    affine limbs, with one Fermat inversion of the batch product (the
+    pow_loop kernel at N = 1).  A dead lane's Z is literal 0.0 in every
+    channel, which no live value can produce."""
+    from . import cuda_rns
+
+    dead = torch.all(Z == 0.0, dim=0)
+    one_b = rns.one_rns.expand_as(Z)
+    zsafe = torch.where(dead[None], one_b, Z)
+    prefix = _scan_mul(rns, zsafe, reverse=False)
+    suffix = _scan_mul(rns, zsafe, reverse=True)
+    total = prefix[:, -1:].contiguous()
+    tinv = cuda_rns.pow_loop(rns, total, ctx.pm2_bits)      # [2k, 1]
+    one_col = one_b[:, :1]
+    pre_excl = torch.cat([one_col, prefix[:, :-1]], dim=1)
+    suf_excl = torch.cat([suffix[:, 1:], one_col], dim=1)
+    zinv = rn.r_mul(rns, RVal(pre_excl, 3), RVal(suf_excl, 3))
+    zinv = rn.r_mul(rns, zinv, RVal(tinv.expand_as(Z), 3))
+    zinv2 = rn.r_mul(rns, zinv, zinv)
+    zinv3 = rn.r_mul(rns, zinv2, zinv)
+    x = rn.r_mul(rns, RVal(X, _BX), zinv2)
+    y = rn.r_mul(rns, RVal(Y, _BY), zinv3)
+    xl = rn.from_rns_mont(rns, x)
+    yl = rn.from_rns_mont(rns, y)
+    zero = torch.zeros_like(xl)
+    xl = torch.where(dead[None], zero, xl)
+    yl = torch.where(dead[None], zero, yl)
+    return AffinePoint(xl, yl, dead.to(torch.int64))
+
+
+# ---------------------------------------------------------------------------
+# F_p^2 in RNS: pairs (re, im) of RVals; carry invariant (9p, 9p)
+# ---------------------------------------------------------------------------
+
+
+def _fp2_mul(rns, x, y):
+    """Karatsuba: 3 r_muls, one stacked product."""
+    a, b = x
+    c, d = y
+    t0, t1, t2 = rn.r_mul_many(
+        rns, [(a, c), (b, d),
+              (rn.r_add(rns, a, b), rn.r_add(rns, c, d))])
+    return (rn.r_sub(rns, t0, t1),
+            rn.r_sub(rns, rn.r_sub(rns, t2, t0), t1))
+
+
+def _fp2_sqr(rns, x):
+    a, b = x
+    re, ab = rn.r_mul_many(
+        rns, [(rn.r_add(rns, a, b), rn.r_sub(rns, a, b)), (a, b)])
+    return re, rn.r_add(rns, ab, ab)
+
+
+def _fp2_conj(rns, x):
+    a, b = x
+    return a, rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
+
+
+def _rns_pow(rns, x: RVal, bits) -> RVal:
+    """x^e, e as shared MSB-first bits (pow_loop kernel); x.bound <= 16."""
+    from . import cuda_rns
+    assert x.bound <= 16, x.bound
+    return RVal(cuda_rns.pow_loop(rns, x.v.contiguous(), bits), 3)
+
+
+def _fp2_inv(rns, x, pm2_bits):
+    """1/(a+bi) = (a-bi)/(a^2+b^2); the Fermat inversion of the norm is
+    one pow_loop."""
+    a, b = x
+    aa, bb = rn.r_mul_many(rns, [(a, a), (b, b)])
+    norm = rn.r_add(rns, aa, bb)
+    ninv = _rns_pow(rns, norm, pm2_bits)
+    nb = rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
+    return rn.r_mul(rns, a, ninv), rn.r_mul(rns, nb, ninv)
+
+
+def _fp2_pow_bits(rns, x, digits, unitary=False):
+    """x^e for an F_p^2 element over shared MSB-first digits (signed NAF
+    only when x is unitary: a negative digit multiplies by conj(x))."""
+    from . import cuda_rns
+    digits = torch.as_tensor(digits)
+    if not unitary:
+        if bool((digits < 0).any()):
+            raise ValueError(
+                "non-unitary fp2 pow requires nonnegative digits "
+                "(signed NAF needs unitary=True)")
+    xr, xi = x
+    assert xr.bound <= 9 and xi.bound <= 10, (xr.bound, xi.bound)
+    ar, ai = cuda_rns.fp2_pow_loop(rns, xr.v.contiguous(),
+                                   xi.v.contiguous(), digits)
+    return RVal(ar, 9), RVal(ai, 9)
+
+
+def fp2_pow_rns(ctx: MontCtx, rns: RNSCtx, z, digits, unitary=False,
+                raw=False):
+    """z^e for GT elements (limbs [2, L, B] in/out); raw=True returns the
+    (re, im) RVals without the limb exit."""
+    zr = rn.to_rns_mont(rns, z[0])
+    zi = rn.to_rns_mont(rns, z[1])
+    wr, wi = _fp2_pow_bits(rns, (RVal(zr.v, 9), RVal(zi.v, 9)), digits,
+                           unitary=unitary)
+    if raw:
+        return wr, wi
+    return torch.stack([rn.from_rns_mont(rns, wr),
+                        rn.from_rns_mont(rns, wi)], dim=0)
+
+
+def final_exponentiation_rns(ctx: MontCtx, rns: RNSCtx, f, l_bits):
+    """f^((p^2-1)/n) = (conj(f)/f)^l entirely in RNS."""
+    inv = _fp2_inv(rns, f, ctx.pm2_bits)
+    w = _fp2_mul(rns, _fp2_conj(rns, f), inv)
+    return _fp2_pow_bits(rns, w, l_bits)
+
+
+def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
+                  b: AffinePoint, n_digits):
+    """Miller function value f_{n,A}(phi(B)) as RNS RVals over the flat
+    batch (miller_loop kernel); the first nonzero digit must be +1."""
+    L = ctx.L
+    # numpy's broadcast: torch.broadcast_shapes imports sympy on first use
+    batch_shape = np.broadcast_shapes(tuple(a.x.shape[1:]),
+                                      tuple(b.x.shape[1:]))
+    flat = 1
+    for s in batch_shape:
+        flat *= s
+
+    def prep(x):
+        return rn.to_rns_mont(
+            rns, lb.expand_to(x, (L,) + tuple(batch_shape)).reshape(L, flat))
+
+    from . import cuda_rns
+    ax, ay = prep(a.x), prep(a.y)
+    xb, yb = prep(b.x), prep(b.y)
+    fr, fi = cuda_rns.miller_loop(rns, ax.v, ay.v, xb.v, yb.v, n_digits)
+    return (RVal(fr, _BF), RVal(fi, _BF)), tuple(batch_shape)
+
+
+def pairing_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint, b: AffinePoint,
+                n_digits, l_bits):
+    """Full pairing (Miller + final exponentiation) in RNS with one limb
+    conversion at exit: [2, L, *batch] limb-Montgomery."""
+    f, batch_shape = _miller_f_rns(ctx, rns, a, b, n_digits)
+    zr, zi = final_exponentiation_rns(ctx, rns, f, l_bits)
+    out_re = rn.from_rns_mont(rns, zr).reshape((ctx.L,) + batch_shape)
+    out_im = rn.from_rns_mont(rns, zi).reshape((ctx.L,) + batch_shape)
+    return torch.stack([out_re, out_im], dim=0)

@@ -1,0 +1,432 @@
+"""The BGN scheme on PyTorch: keygen, Encrypt, Mult, DecryptL2.
+
+The port's counterpart of `bgn_tpu/scheme.py`, first slice: the main
+path keygen (host) -> encrypt_with_randomness -> mult -> decrypt of a
+level-2 ciphertext, all in the RNS domain on the card.  Layouts match the
+JAX package: an L1 ciphertext is AffinePoint(x [L, *B], y [L, *B],
+inf [*B]) of canonical 16-bit Montgomery limbs (int64 here), an L2
+ciphertext is [2, L, *B].
+
+Entry points take `device=` and default to "cuda"; tests pass
+device="cpu", where the kernel wrappers run their plain PyTorch versions.
+Randomness comes from a `random.Random` the caller passes, as in the JAX
+package, so a seeded keygen gives the same key in both packages.
+
+Not in this slice (ROADMAP queue 1): decrypting an L1 ciphertext,
+deterministic Encrypt, Add/Sub/MultConst, re-randomization of
+non-deterministic keys, and the encoding tables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import secrets
+from typing import Any, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import hostmath as hm
+from .fieldcore import limbs as lb
+from .fieldcore import montgomery as mg
+from .fieldcore import rns as rn
+from .fieldcore.montgomery import MontCtx
+from .fieldcore.rns import RNSCtx
+from .ops import bsgs as bsgs_mod
+from .ops import cuda_rns
+from .ops import pairing as pairing_mod
+from .ops import rns_pairing
+from .ops.curve import AffinePoint
+from .utils import convert
+
+# Limb head-room beyond key_bits for the cofactor l (p = l*n - 1).
+_L_MARGIN_BITS = 32
+_WINDOW_BITS = 8
+_WINDOW_RADIX = 1 << _WINDOW_BITS
+_L1_DECRYPT_TODO = ("decrypting a level-1 ciphertext (ladder_loop kernel) "
+                    "is not ported yet: ROADMAP.md queue 1, slice 2")
+
+
+# ---------------------------------------------------------------------------
+# Key material
+# ---------------------------------------------------------------------------
+
+
+class PublicDeviceKey(nn.Module):
+    """Device-resident public key material.  Buffers: the generators P, Q
+    (limbs), the Miller digits n_naf, the bits of l (final exp), and the
+    radix-256 window tables of P and Q as RNS residues [J, R, 2k]
+    (row d of window j = base^(d*256^j), row 0 the identity), laid out so
+    that the dual_ladder kernel reads a row as one contiguous run."""
+
+    def __init__(self, ctx: MontCtx, rns: RNSCtx, P: AffinePoint,
+                 Q: AffinePoint, n_naf, l_bits, p_win, q_win):
+        super().__init__()
+        self.ctx = ctx
+        self.rns = rns
+        for name, pt in (("P", P), ("Q", Q)):
+            for f in AffinePoint._fields:
+                self.register_buffer(f"{name}_{f}", getattr(pt, f))
+        self.register_buffer("n_naf", torch.as_tensor(n_naf, dtype=torch.int64))
+        self.register_buffer("l_bits",
+                             torch.as_tensor(l_bits, dtype=torch.int64))
+        for name, (x, y) in (("p_win", p_win), ("q_win", q_win)):
+            self.register_buffer(f"{name}_x", torch.as_tensor(x).contiguous())
+            self.register_buffer(f"{name}_y", torch.as_tensor(y).contiguous())
+
+    @property
+    def P(self) -> AffinePoint:
+        return AffinePoint(self.P_x, self.P_y, self.P_inf)
+
+    @property
+    def Q(self) -> AffinePoint:
+        return AffinePoint(self.Q_x, self.Q_y, self.Q_inf)
+
+    @property
+    def p_win(self):
+        return self.p_win_x, self.p_win_y
+
+    @property
+    def q_win(self):
+        return self.q_win_x, self.q_win_y
+
+
+class BGNPublicKey:
+    """Public key: host metadata + device arrays + op methods
+    (reference PublicKey, bgn.go:28-41)."""
+
+    def __init__(self, key_bits: int, n: int, l: int, p: int,
+                 msg_space: int, deterministic: bool,
+                 P_host: Tuple[int, int], Q_host: Tuple[int, int],
+                 dev: PublicDeviceKey):
+        self.key_bits = key_bits
+        self.n = n
+        self.l = l
+        self.p = p
+        self.msg_space = msg_space
+        self.deterministic = deterministic
+        self.P_host = P_host
+        self.Q_host = Q_host
+        self.dev = dev
+
+    def encrypt(self, ms: Sequence[int], rng=None) -> "Ciphertext":
+        """Randomized encryption of a batch of ints (Encrypt, bgn.go:334)."""
+        ms = _to_list(ms)
+        rs = [_rand_below(self.n, rng) for _ in ms]
+        return self.encrypt_with_randomness(ms, rs)
+
+    def encrypt_with_randomness(self, ms, rs) -> "Ciphertext":
+        """C = P^m * Q^r (EncryptWithRandomness, bgn.go:340-353).  The
+        batch is padded to a power of two (min 8) as in the JAX package;
+        padding lanes encrypt 0 and are sliced off."""
+        ms = _to_list(ms)
+        rs = _to_list(rs)
+        B = len(ms)
+        Bp = _bucket(B)
+        m_digits, m_neg = _signed_digits(ms + [0] * (Bp - B), self.n)
+        r_digits, r_neg = _signed_digits(rs + [0] * (Bp - B), self.n)
+        if np.any(r_neg):
+            raise ValueError("randomness must be non-negative")
+        pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
+        return Ciphertext(pt, level2=False)[:B]
+
+    def mult(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
+        """Ciphertext-ciphertext multiply via the pairing (Mult,
+        bgn.go:294): two L1 inputs, one L2 result."""
+        if a.level2 or b.level2:
+            raise ValueError("Mult requires two level-1 ciphertexts")
+        if not self.deterministic:
+            raise NotImplementedError(
+                "L2 re-randomization of non-deterministic keys is not "
+                "ported yet: ROADMAP.md queue 1")
+        return Ciphertext(_mult_kernel(self.dev, a.data, b.data), level2=True)
+
+    def setup_decryption(self, sk: "BGNSecretKey",
+                         rng=None) -> bsgs_mod.DecryptTables:
+        """Precompute gsk values + BSGS tables (SetupDecryption,
+        bgn.go:195-201)."""
+        import random as _random
+        rng = rng or _random.Random(secrets.randbits(64))
+        gk = hm.GoldenKey(params=sk.a1_params, P=self.P_host, Q=self.Q_host,
+                          R=sk.r, msg_space=self.msg_space)
+        return bsgs_mod.build_decrypt_tables(gk, self.dev.ctx, rng)
+
+
+class BGNSecretKey:
+    """Secret key {q1, R, poly_base} (reference SecretKey, bgn.go:57-62)."""
+
+    def __init__(self, a1_params: hm.A1Params, r: int, poly_base: int):
+        self.a1_params = a1_params
+        self.key = a1_params.q1
+        self.r = r
+        self.poly_base = poly_base
+        self.q1_naf, _ = _exp_digits(
+            a1_params.q1, a1_params.q1.bit_length(),
+            (a1_params.q1, a1_params.q2, a1_params.n))
+
+    def decrypt(self, ct: "Ciphertext", pk: BGNPublicKey,
+                tables: bsgs_mod.DecryptTables):
+        """Batched decrypt; raises if any element is out of range."""
+        vals, ok = self.decrypt_with_status(ct, pk, tables)
+        if not bool(np.all(ok)):
+            raise ValueError("cannot find discrete log; out of bounds")
+        return vals
+
+    def decrypt_failsafe(self, ct: "Ciphertext", pk: BGNPublicKey,
+                         tables: bsgs_mod.DecryptTables):
+        """Failed lanes decrypt to 0 (DecryptFailSafe, bgn.go:210-216)."""
+        vals, ok = self.decrypt_with_status(ct, pk, tables)
+        return np.where(ok, vals, 0)
+
+    def decrypt_with_status(self, ct: "Ciphertext", pk: BGNPublicKey,
+                            tables: bsgs_mod.DecryptTables):
+        """Returns (values int64 [batch], ok bool [batch])."""
+        if not ct.level2:
+            raise NotImplementedError(_L1_DECRYPT_TODO)
+        found, m = _decrypt_l2_kernel(pk.dev, tables, ct.data, self.q1_naf)
+        return (np.atleast_1d(m.cpu().numpy()).astype(np.int64),
+                np.atleast_1d(found.cpu().numpy()).astype(bool))
+
+
+@dataclasses.dataclass(frozen=True)
+class Ciphertext:
+    """A batch of BGN ciphertexts: data is an AffinePoint (level 1) or a
+    [2, L, *batch] tensor (level 2)."""
+
+    data: Any
+    level2: bool
+
+    @property
+    def batch_shape(self):
+        if self.level2:
+            return tuple(self.data.shape[2:])
+        return tuple(self.data.inf.shape)
+
+    def __getitem__(self, idx) -> "Ciphertext":
+        """Slice along the leading batch axis."""
+        if self.level2:
+            return Ciphertext(self.data[:, :, idx], True)
+        return Ciphertext(AffinePoint(self.data.x[:, idx],
+                                      self.data.y[:, idx],
+                                      self.data.inf[idx]), False)
+
+
+# ---------------------------------------------------------------------------
+# Keygen
+# ---------------------------------------------------------------------------
+
+
+def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
+           fp_scale_base: int = 3, fp_precision: float = 0.0001,
+           deterministic: bool = True, rng=None, device="cuda"
+           ) -> Tuple[BGNPublicKey, BGNSecretKey]:
+    """Generate a BGN key pair (NewKeyGen, bgn.go:65-138) on `device`.
+
+    The host does the number theory; the device arrays are uploaded once.
+    Pass a random.Random for a reproducible key: the same seed gives the
+    JAX package's key.  poly_base, fp_scale_base and fp_precision belong
+    to the plaintext encodings, a later slice; they are accepted for the
+    reference's signature."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions")
+    gk = hm.golden_keygen(key_bits, msg_space, rng)
+    params = gk.params
+    L = lb.num_limbs_for_bits(key_bits + _L_MARGIN_BITS)
+    if params.p.bit_length() > 16 * L:
+        raise ValueError("cofactor l unexpectedly large; retry keygen")
+    ctx = mg.make_mont_ctx(params.p, L=L, device=device)
+    rns = _make_rns(params.p, L, device)
+    n_naf, _ = _exp_digits(params.n, key_bits, (params.q1, params.q2, params.n))
+    dev = PublicDeviceKey(
+        ctx=ctx, rns=rns,
+        P=convert.point_from_host(ctx, gk.P),
+        Q=convert.point_from_host(ctx, gk.Q),
+        n_naf=n_naf,
+        l_bits=lb.int_to_bits(params.l, 32),
+        p_win=_win_rns(params.p, L, _window_table(gk.P, params.p, key_bits)),
+        q_win=_win_rns(params.p, L, _window_table(gk.Q, params.p, key_bits)),
+    ).to(device)
+    pk = BGNPublicKey(key_bits=key_bits, n=params.n, l=params.l, p=params.p,
+                      msg_space=msg_space, deterministic=deterministic,
+                      P_host=gk.P, Q_host=gk.Q, dev=dev)
+    sk = BGNSecretKey(params, gk.R, poly_base)
+    return pk, sk
+
+
+def _make_rns(p: int, L: int, device) -> RNSCtx:
+    """RNS context for the key; the port has only the RNS path."""
+    return rn.make_rns_ctx(p, L=L, device=device)
+
+
+def _window_table(base, p: int, key_bits: int) -> list:
+    """Host rows of the radix-2^w fixed-base table: entry (j, d) =
+    base^(d*R^j), R = _WINDOW_RADIX, row-major over (j, d); d = 0 is the
+    identity (None)."""
+    R = _WINDOW_RADIX
+    J = -(-key_bits // _WINDOW_BITS)
+    rows = []
+    gen = base
+    for _ in range(J):
+        acc = None
+        row = [None]
+        for _ in range(R - 1):
+            acc = hm.ec_add(acc, gen, p)
+            row.append(acc)
+        rows.extend(row)
+        for _ in range(_WINDOW_BITS):
+            gen = hm.ec_dbl(gen, p)
+    return rows
+
+
+def _win_rns(p: int, L: int, rows) -> Tuple[np.ndarray, np.ndarray]:
+    """RNS-Montgomery residues (v*A mod p, bound 1) of a window table's
+    host rows, as float32 [J, R, 2k] for x and y (host math + one numpy
+    digit matmul; the identity rows are residues of 0)."""
+    A_list, B_list, _ = rn.select_channels(p)
+    m = np.array(A_list + B_list, dtype=np.int64)
+    A = 1
+    for v in A_list:
+        A *= v
+    d8 = 2 * L
+    pow2 = np.array([[pow(256, d, int(mc)) for d in range(d8)]
+                     for mc in m], dtype=np.int64)          # [2k, D8]
+    R = _WINDOW_RADIX
+    J = len(rows) // R
+
+    def residues(vals):
+        buf = bytearray(d8 * len(vals))
+        for b, v in enumerate(vals):
+            buf[b * d8:(b + 1) * d8] = (v * A % p).to_bytes(d8, "little")
+        digits = np.frombuffer(bytes(buf), dtype=np.uint8)
+        digits = digits.reshape(len(vals), d8).astype(np.int64)  # [B, D8]
+        S = digits @ pow2.T                                 # [B, 2k]
+        return (S % m[None, :]).astype(np.float32).reshape(J, R, -1)
+
+    xs = [0 if P is None else P[0] for P in rows]
+    ys = [0 if P is None else P[1] for P in rows]
+    return residues(xs), residues(ys)
+
+
+def _signed_digits(values, n: int):
+    """Host ints -> (radix-2^w digits [J, B] int64 of |v| mod n, neg mask
+    [B] int64).  J follows _bits_width, as in the JAX package."""
+    values = [int(v) for v in values]
+    neg = np.asarray([1 if v < 0 else 0 for v in values], dtype=np.int64)
+    mags = [abs(v) % n for v in values]
+    nbits = min(_bits_width(mags), n.bit_length())
+    J = -(-nbits // _WINDOW_BITS)
+    buf = b"".join(v.to_bytes(J, "little") for v in mags)
+    digits = np.frombuffer(buf, dtype=np.uint8) \
+        .reshape(len(mags), J).T.astype(np.int64)
+    return digits, neg
+
+
+def _rand_below(n: int, rng=None) -> int:
+    """Uniform random int < n (newCryptoRandom, bgn.go:567-574)."""
+    if rng is None:
+        return secrets.randbelow(n)
+    return rng.randrange(n)
+
+
+def _to_list(values):
+    return [int(v) for v in np.atleast_1d(np.asarray(values, dtype=object))]
+
+
+def _bucket(b: int) -> int:
+    """Next power of two >= b (min 8)."""
+    n = 8
+    while n < b:
+        n *= 2
+    return n
+
+
+def _bits_width(values) -> int:
+    """Power-of-two-ish bit-width bucket of the largest value."""
+    m = max((int(abs(v)).bit_length() for v in values), default=1)
+    m = max(m, 1)
+    w = 16
+    while w < m:
+        w *= 2
+    return w
+
+
+def _chain_degenerate(digits, mods) -> bool:
+    """True if the MSB-first signed-digit double-and-add chain hits a
+    degenerate mixed addition for a base point whose order divides one of
+    `mods` (V == addend anywhere, or V == -addend before the last step)."""
+    started = False
+    c = 0
+    nz = [i for i, d in enumerate(digits) if d]
+    last = nz[-1] if nz else -1
+    for i, d in enumerate(digits):
+        d = int(d)
+        if not started:
+            if d:
+                started = True
+                c = d
+            continue
+        c *= 2
+        if d:
+            for ordc in mods:
+                if ordc <= 1:
+                    continue
+                if (c - d) % ordc == 0:
+                    return True
+                if (c + d) % ordc == 0 and i != last:
+                    return True
+            c += d
+    return False
+
+
+def _exp_digits(e: int, width: int, mods):
+    """Signed MSB-first ladder digits for exponent e: NAF when the chain
+    is safe for every point order in `mods`, else plain bits; leading
+    zeros stripped.  Returns (int64 digits, kind in {"naf", "bits"})."""
+    naf = lb.int_to_naf(e, width)
+    if not _chain_degenerate(naf, mods):
+        digits, kind = naf, "naf"
+    else:  # pragma: no cover -- probability ~2^-240 per key
+        digits = lb.int_to_bits(e, width)
+        kind = "bits"
+        if _chain_degenerate(digits, mods):
+            raise ValueError("degenerate addition chain; regenerate key")
+    nz = np.nonzero(digits)[0]
+    return (digits[nz[0]:] if nz.size else digits[-1:]), kind
+
+
+# ---------------------------------------------------------------------------
+# Device paths
+# ---------------------------------------------------------------------------
+
+
+def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
+    """Both window chains + the g +- h combine (dual_ladder kernel), then
+    the RNS normalize (batch-inversion scans + one pow_loop)."""
+    device = dev.n_naf.device
+    Jm = m_digits.shape[0]
+    dig = torch.as_tensor(np.concatenate([m_digits, r_digits], axis=0),
+                          device=device)
+    mneg = torch.as_tensor(m_neg, device=device)
+    X, Y, Z = cuda_rns.dual_ladder(dev.rns, dev.p_win, dev.q_win, Jm, dig,
+                                   mneg)
+    return rns_pairing.normalize_rns(dev.ctx, dev.rns, X, Y, Z)
+
+
+def _mult_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
+    return pairing_mod.pairing(dev.ctx, a, b, dev.n_naf, dev.l_bits,
+                               rns=dev.rns)
+
+
+def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, z, q1_naf):
+    """csk = z^q1 (fp2_pow_loop over the signed digits: L2 ciphertexts
+    are unitary), then the RNS giant-step scan and digest lookup."""
+    batch_shape = tuple(z.shape[2:])
+    L = dev.ctx.L
+    zf = z.reshape(2, L, -1)
+    zr, zi = rns_pairing.fp2_pow_rns(dev.ctx, dev.rns, zf, q1_naf,
+                                     unitary=True, raw=True)
+    found, m = bsgs_mod.bsgs_gt_rns(dev.ctx, dev.rns, tables, zr, zi)
+    return found.reshape(batch_shape), m.reshape(batch_shape)

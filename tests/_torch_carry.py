@@ -1,0 +1,45 @@
+"""Carry a JAX-package key (and decrypt tables) across to bgn_torch on the
+CPU, through bgn_torch.convert_from_jax, for the port's parity tests."""
+import dataclasses
+
+import numpy as np
+
+from bgn_torch import convert_from_jax as cj
+
+
+def rns_arrays(jrns) -> dict:
+    return {f.name: np.asarray(getattr(jrns, f.name))
+            for f in dataclasses.fields(jrns)
+            if f.name not in ("k", "h", "L")}
+
+
+def _pt(p):
+    return tuple(np.asarray(a) for a in (p.x, p.y, p.inf))
+
+
+def port_public_key(pk, device="cpu"):
+    """The port's BGNPublicKey built from the JAX key's arrays."""
+    d = pk.dev
+    ctx = cj.mont_ctx(np.asarray(d.ctx.p), np.asarray(d.ctx.one),
+                      np.asarray(d.ctx.pm2_bits), d.ctx.p_host, device)
+    rns = cj.rns_ctx(rns_arrays(d.rns), d.rns.k, d.rns.h, d.rns.L, device)
+    dev = cj.device_key(
+        ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_naf),
+        np.asarray(d.l_bits),
+        tuple(np.asarray(a) for a in d.p_win_rns[:2]),
+        tuple(np.asarray(a) for a in d.q_win_rns[:2]), device)
+    return cj.public_key(pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space,
+                         pk.deterministic, pk.P_host, pk.Q_host, dev)
+
+
+def port_tables(tables, device="cpu"):
+    """The port's DecryptTables built from the JAX tables' arrays."""
+    def tab(t):
+        return {f: np.asarray(getattr(t, f))
+                for f in ("digests", "values", "keys", "salts")}
+
+    return cj.decrypt_tables(
+        tab(tables.table_g1), tab(tables.table_gt), _pt(tables.gsk_g1),
+        _pt(tables.gamma_inv_g1), np.asarray(tables.gsk_gt),
+        np.asarray(tables.gamma_inv_gt), tables.bound, tables.bound_t,
+        device)

@@ -1,0 +1,154 @@
+"""Package rules of bgn_torch: no JAX and nothing of bgn_tpu in the port or
+in chip_smoke.py; entry points default to the card; every kernel wrapper
+counts launches and sends CPU tensors to its plain version; and the
+kernels' integer base extension (csrc/rns.cuh r_mul, emulated here in
+numpy over the same constant blob) equals the plain r_mul bit for bit.
+"""
+import ast
+import random
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from bgn_torch import scheme
+from bgn_torch.fieldcore import rns as trn
+from bgn_torch.ops import cuda_rns
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("where", ["bgn_torch", "chip_smoke.py"])
+def test_no_jax_and_no_bgn_tpu(where):
+    files = sorted((ROOT / where).rglob("*.py")) if where == "bgn_torch" \
+        else [ROOT / where]
+    assert files and all(f.exists() for f in files)
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "bgn_tpu"), (f, name)
+
+
+def test_keygen_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        scheme.keygen(64, 101, rng=random.Random(5))
+
+
+def _small_ctx(bits=80):
+    rng = random.Random(3)
+    while True:
+        p = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
+        if all(pow(a, p - 1, p) == 1 for a in (2, 3, 5, 7, 11, 13)):
+            return trn.make_rns_ctx(p, device="cpu")
+
+
+def _residues(ctx, n, seed):
+    g = np.random.default_rng(seed)
+    m = ctx.m.numpy().astype(np.int64)
+    return torch.tensor((g.integers(0, 1 << 30, size=(2 * ctx.k, n)) % m)
+                        .astype(np.float32))
+
+
+def test_wrappers_count_and_dispatch_cpu_to_plain():
+    ctx = _small_ctx()
+    x, y = _residues(ctx, 3, 1), _residues(ctx, 3, 2)
+    bits = [1, 0, 1, 1]
+    naf = [1, 0, -1, 0, 1]
+    tab = (torch.tensor(np.stack([_residues(ctx, 4, 3 + j).numpy().T
+                                  for j in range(2)])),
+           torch.tensor(np.stack([_residues(ctx, 4, 5 + j).numpy().T
+                                  for j in range(2)])))
+    dig = torch.tensor([[1, 0, 3], [2, 2, 0]])
+    mneg = torch.tensor([0, 1, 0])
+    calls = [
+        (cuda_rns.miller_loop, cuda_rns.miller_loop_plain,
+         (ctx, x, y, y, x, naf)),
+        (cuda_rns.pow_loop, cuda_rns.pow_loop_plain, (ctx, x, bits)),
+        (cuda_rns.fp2_pow_loop, cuda_rns.fp2_pow_loop_plain,
+         (ctx, x, y, naf)),
+        (cuda_rns.dual_ladder, cuda_rns.dual_ladder_plain,
+         (ctx, tab, tab, 1, dig, mneg)),
+    ]
+    assert set(cuda_rns.WRAPPERS) == {c[0] for c in calls}
+    for wrapper, plain, args in calls:
+        assert isinstance(wrapper.launches, int)
+        before = wrapper.launches
+        got, want = wrapper(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert wrapper.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_rns.pow_loop(ctx, x.to("meta"), bits)
+
+
+def _emulated_kernel_r_mul(ctx, x, y):
+    """csrc/rns.cuh r_mul, line for line, over the kernels' constant blob
+    (numpy, all lanes at once)."""
+    k = ctx.k
+    off = cuda_rns.blob_layout(k)
+    blob = cuda_rns.const_blob(ctx).numpy()
+    f = blob.view(np.float32)
+    rs = off["rs"]
+
+    def fld(name, n):
+        return f[off[name]:off[name] + n][:, None]
+
+    def ints(name, n):
+        return blob[off[name]:off[name] + n].astype(np.int64)
+
+    m, recip = fld("m", 2 * k), fld("recip", 2 * k)
+
+    def red(v, mm, rr):
+        q = np.floor((v * rr).astype(np.float32))
+        r = (v - q * mm).astype(np.float32)
+        return np.where(r >= mm, r - mm, r)
+
+    x, y = x.numpy(), y.numpy()
+    mat1 = ints("mat1", k * rs).reshape(k, rs)[:, :k]       # [dst j, src i]
+    mat2 = ints("mat2", k * rs).reshape(k, rs)[:, :k]       # [dst i, src j]
+    d = red((x * y).astype(np.float32), m, recip)
+    qh = red((d[:k] * fld("qc_a", k)).astype(np.float32), m[:k], recip[:k])
+    qh = qh.astype(np.int64)
+    a1 = np.floor((ints("w1a", k)[:, None] * qh).sum(0) / 524288.0 - 0.4)
+    mB = m[k:].astype(np.int64)
+    T = mat1 @ qh + 128 * mB - a1.astype(np.int64) * \
+        fld("p_mod_b", k).astype(np.int64)
+    qpa = (T % mB).astype(np.float32)
+    u = red((d[k:] * fld("ainv_b", k)).astype(np.float32), m[k:],
+            recip[k:]) + qpa
+    r = np.where(u >= m[k:], u - m[k:], u)
+    rh = red((r * fld("crt_inv_b", k)).astype(np.float32), m[k:],
+             recip[k:]).astype(np.int64)
+    a2 = np.floor((ints("w2a", k)[:, None] * rh).sum(0) / 524288.0 + 0.5)
+    mA = m[:k].astype(np.int64)
+    T2 = mat2 @ rh + 128 * mA - a2.astype(np.int64) * \
+        fld("b_mod_a", k).astype(np.int64)
+    return np.concatenate([(T2 % mA).astype(np.float32), r], axis=0)
+
+
+@pytest.mark.parametrize("bits", [80, 515])
+def test_kernel_integer_extension_matches_plain_r_mul(bits):
+    """The kernels compute each base extension as an exact int32 dot
+    product and an integer mod; that is the canonical residue of the same
+    integer the plain version reduces, so raw residues agree bit for bit
+    (p of 80 bits, and of 515 bits: k = 45, the 512-bit key's layout)."""
+    ctx = _small_ctx(bits)
+    x, y = _residues(ctx, 64, 7), _residues(ctx, 64, 8)
+    got = _emulated_kernel_r_mul(ctx, x, y)
+    want = trn.r_mul(ctx, trn.RVal(x, 3), trn.RVal(y, 3)).v.numpy()
+    np.testing.assert_array_equal(got, want)
+    assert cuda_rns.blob_layout(ctx.k)["words"] == \
+        cuda_rns.const_blob(ctx).numel()
