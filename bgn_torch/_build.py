@@ -27,13 +27,18 @@ LIB_NAME = "libbgn_rns.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry -> argument types (the stream is the last argument of each)
+# C entry -> argument types: (blob, k, slots, ...), the stream last
 _SIGNATURES = {
-    "bgn_miller_loop": [_P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
-    "bgn_pow_loop": [_P, _I, _P, _P, _I, _P, _I, _P],
-    "bgn_fp2_pow_loop": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _P],
-    "bgn_dual_ladder": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
+    "bgn_miller_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bgn_pow_loop": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
+    "bgn_fp2_pow_loop": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bgn_dual_ladder": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                         _P, _P, _P, _I, _P],
+    "bgn_ladder_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                        _P, _I, _P],
+    "bgn_window_ladder_tab": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                              _I, _P],
+    "bgn_window_ladder": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
 }
 
 # what the last build did: seconds, and nvcc's -Xptxas -v report

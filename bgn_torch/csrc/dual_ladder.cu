@@ -4,14 +4,14 @@
 // (_dual_ladder_kernel with _jac_add_full).  On the TPU the window axis
 // is a sequential grid dimension whose accumulators live in VMEM scratch
 // between grid steps, and table rows are picked by a one-hot bf16 matmul.
-// Here one warp walks all windows of its lane (rns.cuh): windows j < Jm
-// add row d of P's table j into chain 1, the others row d of Q's table
-// j - Jm into chain 2, each row read directly from the [J, R, 2k] float32
-// residue tables (about 24 MB at 512 bits, so they stay in the 50 MB L2;
-// the warp reads a row as consecutive words).  Digits differ per lane but
-// not within a warp, so nothing diverges; a lane computes only the
-// additions its flags keep, which gives the same values as the TPU
-// kernel's compute-then-select.
+// Here one warp walks all windows of its lane (rns.cuh win_chain):
+// windows j < Jm add row d of P's table j into chain 1, the others row d
+// of Q's table j - Jm into chain 2, each row read directly from the
+// [J, R, 2k] float32 residue tables (about 24 MB at 512 bits, so they
+// stay in the 50 MB L2; the warp reads a row as consecutive words).
+// Digits differ per lane but not within a warp, so nothing diverges; a
+// lane computes only the additions its flags keep, which gives the same
+// values as the TPU kernel's compute-then-select.
 //
 // Flags follow the TPU kernel exactly: live = (digit != 0); the first
 // live window of a chain sets the accumulator to the row (Z = 1), later
@@ -22,33 +22,7 @@
 // the combine) and the latency of the per-lane row gather.
 #include "rns.cuh"
 
-// One window chain over windows [j0, j1) of `digits`, table rows
-// tx/ty + ((j - j0) * R + d) * 2k; returns whether a window was live.
-static __device__ __forceinline__ bool chain(const RnsConsts& c, Fe& X,
-                                             Fe& Y, Fe& Z, const float* tx,
-                                             const float* ty, int R,
-                                             const int* digits, int j0,
-                                             int j1, int n, int lane) {
-  bool st = false;
-  for (int j = j0; j < j1; j++) {
-    const int d = digits[(size_t)j * n + lane];
-    if (d == 0) continue;            // not live: chain unchanged
-    const size_t row = ((size_t)(j - j0) * R + d) * c.ch;
-    Fe RX, RY;
-    fe_gather(c, RX, tx + row);
-    fe_gather(c, RY, ty + row);
-    if (!st) {
-      fe_copy(X, RX);
-      fe_copy(Y, RY);
-      fe_one(c, Z);
-      st = true;
-    } else {
-      add_pt(c, X, Y, Z, RX, RY);
-    }
-  }
-  return st;
-}
-
+template <int S>
 __global__ void __launch_bounds__(BGN_THREADS)
 bgn_dual_ladder_kernel(const float* blob, int k, const float* ptx,
                        const float* pty, const float* qtx, const float* qty,
@@ -58,9 +32,11 @@ bgn_dual_ladder_kernel(const float* blob, int k, const float* ptx,
   const RnsConsts c = bgn_load_consts(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
-  Fe X1, Y1, Z1, X2, Y2, Z2;
-  const bool st1 = chain(c, X1, Y1, Z1, ptx, pty, R, digits, 0, Jm, n, lane);
-  const bool st2 = chain(c, X2, Y2, Z2, qtx, qty, R, digits, Jm, Jt, n, lane);
+  Fe<S> X1, Y1, Z1, X2, Y2, Z2;
+  const bool st1 =
+      win_chain(c, X1, Y1, Z1, ptx, pty, R, digits, 0, Jm, n, lane);
+  const bool st2 =
+      win_chain(c, X2, Y2, Z2, qtx, qty, R, digits, Jm, Jt, n, lane);
   if (st1 && mneg[lane]) fe_neg(c, Y1, Y1, 27);
   if (st1 && st2) {
     jac_add_full(c, X1, Y1, Z1, X2, Y2, Z2);
@@ -80,17 +56,28 @@ bgn_dual_ladder_kernel(const float* blob, int k, const float* ptx,
   fe_store(c, oz, Z1, n, lane);
 }
 
-extern "C" int bgn_dual_ladder(const float* blob, int k, const float* ptx,
-                               const float* pty, const float* qtx,
-                               const float* qty, int R, int Jm, int Jt,
-                               const int* digits, const int* mneg, float* ox,
-                               float* oy, float* oz, int n,
-                               cudaStream_t stream) {
+template <int S>
+static int dual_ladder_launch(const float* blob, int k, const float* ptx,
+                              const float* pty, const float* qtx,
+                              const float* qty, int R, int Jm, int Jt,
+                              const int* digits, const int* mneg, float* ox,
+                              float* oy, float* oz, int n,
+                              cudaStream_t stream) {
   dim3 grid;
   size_t smem;
-  cudaError_t err = bgn_prepare(bgn_dual_ladder_kernel, k, n, &grid, &smem);
+  cudaError_t err = bgn_prepare(bgn_dual_ladder_kernel<S>, k, n, &grid, &smem);
   if (err != cudaSuccess) return (int)err;
-  bgn_dual_ladder_kernel<<<grid, BGN_THREADS, smem, stream>>>(
+  bgn_dual_ladder_kernel<S><<<grid, BGN_THREADS, smem, stream>>>(
       blob, k, ptx, pty, qtx, qty, R, Jm, Jt, digits, mneg, ox, oy, oz, n);
   return (int)cudaGetLastError();
+}
+
+extern "C" int bgn_dual_ladder(const float* blob, int k, int slots,
+                               const float* ptx, const float* pty,
+                               const float* qtx, const float* qty, int R,
+                               int Jm, int Jt, const int* digits,
+                               const int* mneg, float* ox, float* oy,
+                               float* oz, int n, cudaStream_t stream) {
+  return BGN_DISPATCH(slots, k, dual_ladder_launch, blob, k, ptx, pty, qtx,
+                      qty, R, Jm, Jt, digits, mneg, ox, oy, oz, n, stream);
 }

@@ -10,6 +10,7 @@
 // multiplication).
 #include "rns.cuh"
 
+template <int S>
 __global__ void __launch_bounds__(BGN_THREADS)
 bgn_fp2_pow_loop_kernel(const float* blob, int k, const float* xr,
                         const float* xi, const int* digits, int nd,
@@ -17,7 +18,7 @@ bgn_fp2_pow_loop_kernel(const float* blob, int k, const float* xr,
   const RnsConsts c = bgn_load_consts(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
-  Fe XR, XI, NXI, AR, AI;
+  Fe<S> XR, XI, NXI, AR, AI;
   fe_load(c, XR, xr, n, lane);
   fe_load(c, XI, xi, n, lane);
   fe_neg(c, NXI, XI, 10);            // conj: 10p - xi, bound 10
@@ -27,9 +28,8 @@ bgn_fp2_pow_loop_kernel(const float* blob, int k, const float* xr,
     fp2_sqr(c, AR, AI);
     const int d = digits[i];
     if (d != 0) {
-      Fe YI;
-#pragma unroll
-      for (int s = 0; s < BGN_SLOTS; s++) YI.v[s] = d > 0 ? XI.v[s] : NXI.v[s];
+      Fe<S> YI;
+      fe_pick(YI, d > 0, XI, NXI);
       fp2_mul(c, AR, AI, XR, YI);
     }
   }
@@ -37,15 +37,25 @@ bgn_fp2_pow_loop_kernel(const float* blob, int k, const float* xr,
   fe_store(c, owi, AI, n, lane);
 }
 
-extern "C" int bgn_fp2_pow_loop(const float* blob, int k, const float* xr,
-                                const float* xi, const int* digits, int nd,
-                                float* owr, float* owi, int n,
-                                cudaStream_t stream) {
+template <int S>
+static int fp2_pow_loop_launch(const float* blob, int k, const float* xr,
+                               const float* xi, const int* digits, int nd,
+                               float* owr, float* owi, int n,
+                               cudaStream_t stream) {
   dim3 grid;
   size_t smem;
-  cudaError_t err = bgn_prepare(bgn_fp2_pow_loop_kernel, k, n, &grid, &smem);
+  cudaError_t err =
+      bgn_prepare(bgn_fp2_pow_loop_kernel<S>, k, n, &grid, &smem);
   if (err != cudaSuccess) return (int)err;
-  bgn_fp2_pow_loop_kernel<<<grid, BGN_THREADS, smem, stream>>>(
+  bgn_fp2_pow_loop_kernel<S><<<grid, BGN_THREADS, smem, stream>>>(
       blob, k, xr, xi, digits, nd, owr, owi, n);
   return (int)cudaGetLastError();
+}
+
+extern "C" int bgn_fp2_pow_loop(const float* blob, int k, int slots,
+                                const float* xr, const float* xi,
+                                const int* digits, int nd, float* owr,
+                                float* owi, int n, cudaStream_t stream) {
+  return BGN_DISPATCH(slots, k, fp2_pow_loop_launch, blob, k, xr, xi, digits,
+                      nd, owr, owi, n, stream);
 }

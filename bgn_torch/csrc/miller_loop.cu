@@ -15,6 +15,7 @@
 // per doubling, 17 per addition; see rns.cuh).
 #include "rns.cuh"
 
+template <int S>
 __global__ void __launch_bounds__(BGN_THREADS)
 bgn_miller_loop_kernel(const float* blob, int k, const float* ax,
                        const float* ay, const float* xb, const float* yb,
@@ -23,7 +24,7 @@ bgn_miller_loop_kernel(const float* blob, int k, const float* ax,
   const RnsConsts c = bgn_load_consts(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
-  Fe AX, AY, NAY, XB, YB, X, Y, Z, FR, FI;
+  Fe<S> AX, AY, NAY, XB, YB, X, Y, Z, FR, FI;
   fe_load(c, AX, ax, n, lane);
   fe_load(c, AY, ay, n, lane);
   fe_load(c, XB, xb, n, lane);
@@ -41,9 +42,8 @@ bgn_miller_loop_kernel(const float* blob, int k, const float* ax,
     dbl_step(c, X, Y, Z, FR, FI, XB, YB);
     const int d = digits[i];
     if (i < nd - 1 && d != 0) {
-      Fe YA;
-#pragma unroll
-      for (int s = 0; s < BGN_SLOTS; s++) YA.v[s] = d > 0 ? AY.v[s] : NAY.v[s];
+      Fe<S> YA;
+      fe_pick(YA, d > 0, AY, NAY);
       add_step(c, X, Y, Z, FR, FI, AX, YA, XB, YB);
     }
   }
@@ -51,16 +51,26 @@ bgn_miller_loop_kernel(const float* blob, int k, const float* ax,
   fe_store(c, ofi, FI, n, lane);
 }
 
-extern "C" int bgn_miller_loop(const float* blob, int k, const float* ax,
-                               const float* ay, const float* xb,
-                               const float* yb, const int* digits, int nd,
-                               float* ofr, float* ofi, int n,
-                               cudaStream_t stream) {
+template <int S>
+static int miller_loop_launch(const float* blob, int k, const float* ax,
+                              const float* ay, const float* xb,
+                              const float* yb, const int* digits, int nd,
+                              float* ofr, float* ofi, int n,
+                              cudaStream_t stream) {
   dim3 grid;
   size_t smem;
-  cudaError_t err = bgn_prepare(bgn_miller_loop_kernel, k, n, &grid, &smem);
+  cudaError_t err = bgn_prepare(bgn_miller_loop_kernel<S>, k, n, &grid, &smem);
   if (err != cudaSuccess) return (int)err;
-  bgn_miller_loop_kernel<<<grid, BGN_THREADS, smem, stream>>>(
+  bgn_miller_loop_kernel<S><<<grid, BGN_THREADS, smem, stream>>>(
       blob, k, ax, ay, xb, yb, digits, nd, ofr, ofi, n);
   return (int)cudaGetLastError();
+}
+
+extern "C" int bgn_miller_loop(const float* blob, int k, int slots,
+                               const float* ax, const float* ay,
+                               const float* xb, const float* yb,
+                               const int* digits, int nd, float* ofr,
+                               float* ofi, int n, cudaStream_t stream) {
+  return BGN_DISPATCH(slots, k, miller_loop_launch, blob, k, ax, ay, xb, yb,
+                      digits, nd, ofr, ofi, n, stream);
 }

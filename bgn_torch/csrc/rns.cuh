@@ -1,31 +1,48 @@
 // RNS field and curve arithmetic as CUDA device functions: the library
 // that every loop kernel of bgn_torch runs, the counterpart of
 // bgn_tpu/fieldcore/rns.py (_red, r_mul, r_add, r_sub) and the step
-// functions of bgn_tpu/ops/rns_pairing.py (_dbl_step, _add_step, _add_pt,
-// _fp2_mul, _fp2_sqr) and pallas_rns.py (_jac_add_full).
+// functions of bgn_tpu/ops/rns_pairing.py (_dbl_step, _add_step, _dbl_pt,
+// _add_pt, _fp2_mul, _fp2_sqr) and pallas_rns.py (_jac_add_full).
 //
 // An F_p element is 2k residues modulo 12-bit primes (base A = channels
-// 0..k-1, base B = channels k..2k-1, k <= 64).  One warp owns one lane
-// (one batch element): thread l of the warp holds channel c = 32*s + l in
-// slot s of a 4-entry register array (Fe).  Every index into an Fe is a
-// compile-time constant and every helper is inlined (r_mul is one
-// out-of-line copy taking and returning Fe by value), so a lane's whole
-// loop state stays in registers: no local memory, no cache misses on the
-// dependent chain.  Channelwise work is one slot op per thread; the two
-// base extensions of an r_mul broadcast each source residue to the warp
-// with a shuffle, and each thread accumulates the destination channels it
-// owns against the extension matrix in shared memory (rows padded to a
-// stride of 1 mod 32, so the warp's reads hit distinct banks).  Branches
-// depend only on a lane's digits, so a warp never diverges.
+// 0..k-1, base B = channels k..2k-1).  One warp owns one lane (one batch
+// element): thread l of the warp holds channel c = 32*s + l in slot s of
+// an S-entry register array (Fe<S>), so 2k <= 32*S.  Every kernel is
+// instantiated twice: S = 4 for k <= 64 (keys to ~700 bits) and S = 6 for
+// k <= 96 (1024-bit keys, k = 90); the wrapper picks S from k
+// (ops/cuda_rns.py slots_for).  Which base a slot holds follows from
+// ch < k, so base A may end inside a slot (at k = 90, slot 2 holds base-A
+// channels 64..89 and base-B channels 90..95).  Every index into an Fe is
+// a compile-time constant and every helper is inlined (r_mul is one
+// out-of-line copy per S taking and returning Fe by value), so a lane's
+// whole loop state stays in registers: no local memory, no cache misses
+// on the dependent chain.  Channelwise work is one slot op per thread;
+// the two base extensions of an r_mul broadcast each source residue to
+// the warp with a shuffle, and each thread accumulates the destination
+// channels it owns against the extension matrix in shared memory (rows
+// padded to a stride of 1 mod 32, so the warp's reads hit distinct
+// banks).  Branches depend only on a lane's digits, so a warp never
+// diverges.
 //
 // Exactness: every float value is an integer below 2^24, so float
 // products and sums are exact, and contraction into FMAs changes nothing.
 // The base extensions are exact int32 dot products against the unsplit
-// extension matrices (sum < 64 * 4095^2 < 2^31), and the alpha estimate
-// an exact int32 sum (a warp reduction) scaled in double.  The result of
-// each step is the canonical residue of the same integer that the plain
-// PyTorch version (fieldcore/rns.py) reduces, so the two agree bit for
-// bit.  Only the narrow path (k <= 64) exists.
+// extension matrices plus the bias KC*m (fieldcore/rns.py _kc): with
+// residues and matrix entries <= 4092 the sum is below
+// k * 4092^2 + KC * 4093, which is < 2^31 for every k <= 128 (at k = 128,
+// KC = 256: 2.1444e9 < 2.1475e9).  The alpha estimate:
+//  - narrow path (k <= 64): an exact int32 sum of 8-bit weights
+//    round(2^19/m) times residues (< 64 * 256 * 4096 = 2^26), a warp
+//    reduction, scaled in double;
+//  - wide path (k > 64): floor(sum_i q_i * recip_i + eps) in double, as
+//    fieldcore/rns.py _alpha_sum.  Each product of a 12-bit integer and
+//    an fp32 reciprocal (~2^-12, 24-bit mantissa) is a multiple of 2^-35
+//    below 4, and the sum stays below 2^9, so the double sum is exact in
+//    any order: the warp reduction gives the plain version's value.
+// The result of each step is the canonical residue of the same integer
+// that the plain PyTorch version (fieldcore/rns.py) reduces, so the two
+// agree bit for bit.  Above k = 96 there is no instantiation; at 2048
+// bits (k = 185) the constants (336 KB) would exceed shared memory.
 //
 // What bounds it on the H100: instruction issue.  One r_mul is ~2k
 // shuffles and ~2k (shared load + integer multiply-add) pairs per thread
@@ -37,18 +54,18 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define BGN_KMAX 64
-#define BGN_SLOTS 4                    // 2k <= 128 channels over 32 threads
+#define BGN_KNARROW 64                 // narrow alpha path: k <= 64
 #define BGN_KPCOLS 33                  // kp columns: (K*p) mod m, K <= 32
 #define BGN_LANES 4                    // lanes (warps) per block
 #define BGN_THREADS (32 * BGN_LANES)
 #define BGN_FULL 0xffffffffu
 
-// A lane's F_p element as this thread's slots; passed by value to the
-// out-of-line r_mul (16 bytes travel in registers), by reference to the
+// A lane's F_p element as this thread's S slots; passed by value to the
+// out-of-line r_mul (4S bytes travel in registers), by reference to the
 // inlined helpers, so it never lives in memory.
+template <int S>
 struct Fe {
-  float v[BGN_SLOTS];
+  float v[S];
 };
 
 // The block's copy of the constant blob (dynamic shared memory).
@@ -100,6 +117,15 @@ static inline size_t bgn_smem_bytes(int k) {
   return sizeof(float) * bgn_layout(k, &c);
 }
 
+// The C = KC*m bias of the extensions: must exceed the largest alpha
+// (<= k).  Mirrors fieldcore/rns.py _kc.
+static __host__ __device__ inline int bgn_kc(int k) {
+  if (k <= BGN_KNARROW) return 128;
+  int b = 0;
+  for (int v = k + 1; v; v >>= 1) b++;
+  return 1 << (b > 7 ? b : 7);
+}
+
 // Copy the blob into shared memory (whole block) and lay it out.  Every
 // thread of the block calls it before any early return.
 static __device__ inline RnsConsts bgn_load_consts(const float* blob, int k) {
@@ -117,6 +143,12 @@ static __device__ __forceinline__ int bgn_lane() {
 }
 
 static __device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(BGN_FULL, v, o);
+  return v;
+}
+
+static __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(BGN_FULL, v, o);
   return v;
@@ -148,10 +180,11 @@ static __device__ __forceinline__ float bgn_red(float v, float m, float r) {
   return x >= m ? x - m : x;
 }
 
-static __device__ __forceinline__ void r_add(const RnsConsts& c, Fe& out,
-                                             const Fe& x, const Fe& y) {
+template <int S>
+static __device__ __forceinline__ void r_add(const RnsConsts& c, Fe<S>& out,
+                                             const Fe<S>& x, const Fe<S>& y) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const float m = bgn_mod(c, BGN_CH(c, s));
     const float v = x.v[s] + y.v[s];
     out.v[s] = v >= m ? v - m : v;
@@ -159,10 +192,12 @@ static __device__ __forceinline__ void r_add(const RnsConsts& c, Fe& out,
 }
 
 // x - y + K*p (K = the static bound of y), kept nonnegative.
-static __device__ __forceinline__ void r_sub(const RnsConsts& c, Fe& out,
-                                             const Fe& x, const Fe& y, int K) {
+template <int S>
+static __device__ __forceinline__ void r_sub(const RnsConsts& c, Fe<S>& out,
+                                             const Fe<S>& x, const Fe<S>& y,
+                                             int K) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     const float m = bgn_mod(c, ch);
     float v = (x.v[s] + bgn_kp(c, ch, K)) - y.v[s];
@@ -171,65 +206,76 @@ static __device__ __forceinline__ void r_sub(const RnsConsts& c, Fe& out,
   }
 }
 
-static __device__ __forceinline__ void fe_copy(Fe& out, const Fe& x) {
+template <int S>
+static __device__ __forceinline__ void fe_copy(Fe<S>& out, const Fe<S>& x) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) out.v[s] = x.v[s];
+  for (int s = 0; s < S; s++) out.v[s] = x.v[s];
 }
 
-static __device__ __forceinline__ void fe_zero(Fe& out) {
+template <int S>
+static __device__ __forceinline__ void fe_zero(Fe<S>& out) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) out.v[s] = 0.f;
+  for (int s = 0; s < S; s++) out.v[s] = 0.f;
 }
 
 // This thread's slots of a full 2k-channel row in device memory.
-static __device__ __forceinline__ void fe_gather(const RnsConsts& c, Fe& out,
+template <int S>
+static __device__ __forceinline__ void fe_gather(const RnsConsts& c,
+                                                 Fe<S>& out,
                                                  const float* row) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     out.v[s] = ch < c.ch ? row[ch] : 0.f;
   }
 }
 
 // The Montgomery one (residues of A mod p).
-static __device__ __forceinline__ void fe_one(const RnsConsts& c, Fe& out) {
+template <int S>
+static __device__ __forceinline__ void fe_one(const RnsConsts& c, Fe<S>& out) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     out.v[s] = ch < c.ch ? BGN_F(c.one + ch) : 0.f;
   }
 }
 
 // Residues of (K*p - value) for a coordinate of static bound K.
-static __device__ __forceinline__ void fe_neg(const RnsConsts& c, Fe& out,
-                                              const Fe& v, int K) {
+template <int S>
+static __device__ __forceinline__ void fe_neg(const RnsConsts& c, Fe<S>& out,
+                                              const Fe<S>& v, int K) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     const float x = bgn_kp(c, ch, K) - v.v[s];
     out.v[s] = x < 0.f ? x + bgn_mod(c, ch) : x;
   }
 }
 
-// floor(s * 2^-19 + eps) for an exact int32 sum s.
+// floor(s * 2^-19 + eps) for an exact int32 sum s (narrow path).
 static __device__ __forceinline__ int bgn_alpha(int s, double eps) {
   return (int)floor((double)s * (1.0 / 524288.0) + eps);
 }
 
 // RNS Montgomery product x*y/A (value bound 3), by the whole warp.  Out of
-// line: one copy per kernel keeps the build short (inlined at its ~40 call
-// sites, ptxas took minutes).
-static __device__ __noinline__ Fe r_mul_v(const int k, const Fe x,
-                                          const Fe y) {
+// line: one copy per kernel and S keeps the build short (inlined at its
+// ~40 call sites, ptxas took minutes).  Base A lies in slots < S/2.
+template <int S>
+static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
+                                             const Fe<S> y) {
+  constexpr int SA = S / 2;          // slots that may hold base A (k <= 16S)
   RnsConsts c;                       // offsets from k: registers, no memory
   bgn_layout(k, &c);
   c.lid = threadIdx.x & 31;
-  Fe out = {};
-  int qv[BGN_SLOTS];      // qhat (base A slots) and later rhat (base B)
-  float dB[BGN_SLOTS];
+  const bool wide = S > 4 && k > BGN_KNARROW;
+  const int KC = S > 4 ? bgn_kc(k) : 128;      // S = 4 implies k <= 64
+  Fe<S> out = {};
+  int qv[S];              // qhat (base A channels) and later rhat (base B)
+  float dB[S];
   int s1 = 0;
+  double w1 = 0.0;
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     const float d = bgn_red(__fmul_rn(x.v[s], y.v[s]), bgn_mod(c, ch),
                             ch < c.ch ? BGN_F(c.recip + ch) : 1.f);
@@ -238,21 +284,27 @@ static __device__ __noinline__ Fe r_mul_v(const int k, const Fe x,
     if (ch < k) {
       qv[s] = (int)bgn_red(__fmul_rn(d, BGN_F(c.qc_a + ch)),
                            BGN_F(c.m + ch), BGN_F(c.recip + ch));
-      s1 += BGN_I(c.w1a + ch) * qv[s];
+      if (wide)
+        w1 += (double)qv[s] * (double)BGN_F(c.recip + ch);
+      else
+        s1 += BGN_I(c.w1a + ch) * qv[s];
     }
   }
   // ext A -> B: q * p * A^-1 in base B (alpha biased down by 0.4)
-  const int a1 = bgn_alpha(warp_sum(s1), -0.4);
-  int acc[BGN_SLOTS] = {0, 0, 0, 0};
+  const int a1 = wide ? (int)floor(warp_sum(w1) - 0.4)
+                      : bgn_alpha(warp_sum(s1), -0.4);
+  int acc[S];
 #pragma unroll
-  for (int sa = 0; sa < 2; sa++) {            // base A lies in slots 0, 1
+  for (int s = 0; s < S; s++) acc[s] = 0;
+#pragma unroll
+  for (int sa = 0; sa < SA; sa++) {
 #pragma unroll 8
     for (int l = 0; l < 32; l++) {
       const int i = 32 * sa + l;
       if (i >= k) break;
       const int q = __shfl_sync(BGN_FULL, qv[sa], l);
 #pragma unroll
-      for (int s = 0; s < BGN_SLOTS; s++) {
+      for (int s = 0; s < S; s++) {
         const int ch = BGN_CH(c, s);
         if (ch >= k && ch < c.ch)
           acc[s] += q * BGN_I(c.mat1 + (ch - k) * c.rs + i);
@@ -260,27 +312,34 @@ static __device__ __noinline__ Fe r_mul_v(const int k, const Fe x,
     }
   }
   int s2 = 0;
+  double w2 = 0.0;
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     if (ch >= k && ch < c.ch) {
       const int j = ch - k;
       const float m = BGN_F(c.m + ch), r = BGN_F(c.recip + ch);
       const int mi = (int)m;
-      const int T = acc[s] + 128 * mi - a1 * (int)BGN_F(c.p_mod_b + j);
+      const int T = acc[s] + KC * mi - a1 * (int)BGN_F(c.p_mod_b + j);
       const float qpa = (float)(T % mi);
       const float v = bgn_red(__fmul_rn(dB[s], BGN_F(c.ainv_b + j)), m, r) + qpa;
       const float rr = v >= m ? v - m : v;
       out.v[s] = rr;
       qv[s] = (int)bgn_red(__fmul_rn(rr, BGN_F(c.crt_inv_b + j)), m, r);
-      s2 += BGN_I(c.w2a + j) * qv[s];
+      if (wide)
+        w2 += (double)qv[s] * (double)r;
+      else
+        s2 += BGN_I(c.w2a + j) * qv[s];
     }
   }
   // ext B -> A: exact (alpha centred)
-  const int a2 = bgn_alpha(warp_sum(s2), 0.5);
-  int acc2[2] = {0, 0};
+  const int a2 = wide ? (int)floor(warp_sum(w2) + 0.5)
+                      : bgn_alpha(warp_sum(s2), 0.5);
+  int acc2[SA];
 #pragma unroll
-  for (int sb = 0; sb < BGN_SLOTS; sb++) {
+  for (int s = 0; s < SA; s++) acc2[s] = 0;
+#pragma unroll
+  for (int sb = 0; sb < S; sb++) {
     if (32 * sb + 31 < k) continue;             // no base-B channel here
 #pragma unroll 8
     for (int l = 0; l < 32; l++) {
@@ -290,27 +349,28 @@ static __device__ __noinline__ Fe r_mul_v(const int k, const Fe x,
       if (chb < k) continue;
       const int j = chb - k;
 #pragma unroll
-      for (int s = 0; s < 2; s++) {
+      for (int s = 0; s < SA; s++) {
         const int ch = BGN_CH(c, s);
         if (ch < k) acc2[s] += q * BGN_I(c.mat2 + ch * c.rs + j);
       }
     }
   }
 #pragma unroll
-  for (int s = 0; s < 2; s++) {
+  for (int s = 0; s < SA; s++) {
     const int ch = BGN_CH(c, s);
     if (ch < k) {
       const int mi = (int)BGN_F(c.m + ch);
-      const int T = acc2[s] + 128 * mi - a2 * (int)BGN_F(c.b_mod_a + ch);
+      const int T = acc2[s] + KC * mi - a2 * (int)BGN_F(c.b_mod_a + ch);
       out.v[s] = (float)(T % mi);
     }
   }
   return out;
 }
 
-static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe& out,
-                                             const Fe& x, const Fe& y) {
-  out = r_mul_v(c.k, x, y);
+template <int S>
+static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
+                                             const Fe<S>& x, const Fe<S>& y) {
+  out = r_mul_v<S>(c.k, x, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -320,10 +380,13 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe& out,
 // ---------------------------------------------------------------------------
 
 // Jacobian doubling + tangent line at phi(B) + f <- f^2 * line (21 r_muls).
-static __device__ __forceinline__ void dbl_step(const RnsConsts& c, Fe& X,
-                                                Fe& Y, Fe& Z, Fe& fr, Fe& fi,
-                                                const Fe& xb, const Fe& yb) {
-  Fe XX, ZZ, YY, YZ, t2, ab, sqre, ta, tb;
+template <int S>
+static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
+                                                Fe<S>& X, Fe<S>& Y, Fe<S>& Z,
+                                                Fe<S>& fr, Fe<S>& fi,
+                                                const Fe<S>& xb,
+                                                const Fe<S>& yb) {
+  Fe<S> XX, ZZ, YY, YZ, t2, ab, sqre, ta, tb;
   r_mul(c, XX, X, X);
   r_mul(c, ZZ, Z, Z);
   r_mul(c, YY, Y, Y);
@@ -333,34 +396,34 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c, Fe& X,
   r_add(c, ta, fr, fi);
   r_sub(c, tb, fr, fi, 9);
   r_mul(c, sqre, ta, tb);
-  Fe Z3, sqim;
+  Fe<S> Z3, sqim;
   r_add(c, Z3, YZ, YZ);
   r_add(c, sqim, ab, ab);
-  Fe ZZZ, ZZZZ, YYYY, T;
+  Fe<S> ZZZ, ZZZZ, YYYY, T;
   r_mul(c, ZZZ, Z, ZZ);
   r_mul(c, ZZZZ, ZZ, ZZ);
   r_mul(c, YYYY, YY, YY);
   r_mul(c, T, X, YY);
-  Fe M, S;
+  Fe<S> M, Sv;
   r_add(c, ta, XX, XX);
   r_add(c, ta, XX, ta);
   r_add(c, M, ta, ZZZZ);             // 12
-  r_add(c, S, T, T);
-  r_add(c, S, S, S);                 // 12
+  r_add(c, Sv, T, T);
+  r_add(c, Sv, Sv, Sv);              // 12
   // layer 3 (MM reuses XX, t1 reuses ZZ, Z3ZZZ reuses YY, Z3Y reuses ab)
   r_mul(c, XX, M, M);
   r_mul(c, ZZ, ZZZ, xb);
   r_mul(c, YY, Z3, ZZZ);
   r_mul(c, ab, Z3, Y);
-  Fe X3;
-  r_sub(c, X3, XX, S, 12);
-  r_sub(c, X3, X3, S, 12);           // 27
-  Fe Y8;
+  Fe<S> X3;
+  r_sub(c, X3, XX, Sv, 12);
+  r_sub(c, X3, X3, Sv, 12);          // 27
+  Fe<S> Y8;
   r_add(c, Y8, YYYY, YYYY);
   r_add(c, Y8, Y8, Y8);
   r_add(c, Y8, Y8, Y8);              // 24
   // layer 4
-  r_sub(c, ta, S, X3, 27);
+  r_sub(c, ta, Sv, X3, 27);
   r_mul(c, ZZZZ, M, ta);             // MSX3
   r_add(c, tb, ZZ, t2);
   r_mul(c, T, M, tb);                // Mt
@@ -382,29 +445,33 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c, Fe& X,
 
 // Mixed addition V + A + line through V, A at phi(B) + f <- f * line
 // (17 r_muls).
-static __device__ __forceinline__ void add_step(const RnsConsts& c, Fe& X1,
-                                                Fe& Y1, Fe& Z1, Fe& fr, Fe& fi,
-                                                const Fe& ax, const Fe& ay,
-                                                const Fe& xb, const Fe& yb) {
-  Fe ZZ, U2, ZZZ, H, R, ta;
+template <int S>
+static __device__ __forceinline__ void add_step(const RnsConsts& c,
+                                                Fe<S>& X1, Fe<S>& Y1,
+                                                Fe<S>& Z1, Fe<S>& fr,
+                                                Fe<S>& fi, const Fe<S>& ax,
+                                                const Fe<S>& ay,
+                                                const Fe<S>& xb,
+                                                const Fe<S>& yb) {
+  Fe<S> ZZ, U2, ZZZ, H, R, ta;
   r_mul(c, ZZ, Z1, Z1);
   r_mul(c, U2, ax, ZZ);
   r_mul(c, ZZZ, Z1, ZZ);
   r_mul(c, ta, ay, ZZZ);             // S2
   r_sub(c, H, U2, X1, 27);           // 30
   r_sub(c, R, ta, Y1, 27);           // 30
-  Fe HH, RR, Z3, Rx;
+  Fe<S> HH, RR, Z3, Rx;
   r_mul(c, HH, H, H);
   r_mul(c, RR, R, R);
   r_mul(c, Z3, Z1, H);
   r_add(c, ta, xb, ax);
   r_mul(c, Rx, R, ta);
-  Fe HHH, V, Z3ya, lim;
+  Fe<S> HHH, V, Z3ya, lim;
   r_mul(c, HHH, H, HH);
   r_mul(c, V, X1, HH);
   r_mul(c, Z3ya, Z3, ay);
   r_mul(c, lim, Z3, yb);
-  Fe X3;
+  Fe<S> X3;
   r_sub(c, X3, RR, HHH, 3);
   r_sub(c, X3, X3, V, 3);
   r_sub(c, X3, X3, V, 3);            // 12
@@ -425,19 +492,53 @@ static __device__ __forceinline__ void add_step(const RnsConsts& c, Fe& X1,
   fe_copy(Z1, Z3);
 }
 
+// Jacobian doubling without line math (9 r_muls, 9 r_adds, 4 r_subs), the
+// operation order of rns_pairing.py _dbl_pt; result bounds (27, 27, 6).
+template <int S>
+static __device__ __forceinline__ void dbl_pt(const RnsConsts& c, Fe<S>& X,
+                                              Fe<S>& Y, Fe<S>& Z) {
+  Fe<S> XX, YY, ZZ;
+  r_mul(c, XX, X, X);
+  r_mul(c, YY, Y, Y);
+  r_mul(c, ZZ, Z, Z);
+  Fe<S> YYYY, ZZZZ, T, YZ;
+  r_mul(c, YYYY, YY, YY);
+  r_mul(c, ZZZZ, ZZ, ZZ);
+  r_mul(c, T, X, YY);
+  r_mul(c, YZ, Y, Z);
+  Fe<S> M, Sv, ta;
+  r_add(c, ta, XX, XX);
+  r_add(c, ta, XX, ta);
+  r_add(c, M, ta, ZZZZ);             // 12
+  r_add(c, Sv, T, T);
+  r_add(c, Sv, Sv, Sv);              // 12
+  r_mul(c, XX, M, M);                // MM
+  r_sub(c, X, XX, Sv, 12);
+  r_sub(c, X, X, Sv, 12);            // X3, 27
+  r_add(c, YY, YYYY, YYYY);
+  r_add(c, YY, YY, YY);
+  r_add(c, YY, YY, YY);              // Y8, 24
+  r_sub(c, ta, Sv, X, 27);
+  r_mul(c, ZZ, M, ta);               // MSX3
+  r_sub(c, Y, ZZ, YY, 24);           // Y3, 27
+  r_add(c, Z, YZ, YZ);               // Z3, 6
+}
+
 // Mixed addition V + A without line math or completeness selects
 // (11 r_muls).
-static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe& X1,
-                                              Fe& Y1, Fe& Z1, const Fe& ax,
-                                              const Fe& ay) {
-  Fe ZZ, U2, ZZZ, H, R, ta;
+template <int S>
+static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe<S>& X1,
+                                              Fe<S>& Y1, Fe<S>& Z1,
+                                              const Fe<S>& ax,
+                                              const Fe<S>& ay) {
+  Fe<S> ZZ, U2, ZZZ, H, R, ta;
   r_mul(c, ZZ, Z1, Z1);
   r_mul(c, U2, ax, ZZ);
   r_mul(c, ZZZ, Z1, ZZ);
   r_mul(c, ta, ay, ZZZ);             // S2
   r_sub(c, H, U2, X1, 27);
   r_sub(c, R, ta, Y1, 27);
-  Fe HH, RR;
+  Fe<S> HH, RR;
   r_mul(c, HH, H, H);
   r_mul(c, RR, R, R);
   r_mul(c, Z1, Z1, H);               // Z3 (old Z1 no longer needed)
@@ -452,13 +553,58 @@ static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe& X1,
   r_sub(c, Y1, HH, RR, 3);
 }
 
+// One window of a fixed-base chain (pallas_rns.py _win_ladder_kernel): the
+// first live window sets the accumulator to its row (Z = 1), a later one
+// adds the row.  Called only for live windows.
+template <int S>
+static __device__ __forceinline__ void win_step(const RnsConsts& c, Fe<S>& X,
+                                                Fe<S>& Y, Fe<S>& Z, bool& st,
+                                                const Fe<S>& RX,
+                                                const Fe<S>& RY) {
+  if (!st) {
+    fe_copy(X, RX);
+    fe_copy(Y, RY);
+    fe_one(c, Z);
+    st = true;
+  } else {
+    add_pt(c, X, Y, Z, RX, RY);
+  }
+}
+
+// One window chain over windows [j0, j1) of per-lane `digits` ([Jt, n]),
+// row d of window j read from the tables tx/ty [J, R, 2k] at
+// ((j - j0) * R + d) * 2k (one contiguous run per row); returns whether a
+// window was live (digit != 0; row 0 is the identity).
+template <int S>
+static __device__ __forceinline__ bool win_chain(const RnsConsts& c,
+                                                 Fe<S>& X, Fe<S>& Y,
+                                                 Fe<S>& Z, const float* tx,
+                                                 const float* ty, int R,
+                                                 const int* digits, int j0,
+                                                 int j1, int n, int lane) {
+  bool st = false;
+  for (int j = j0; j < j1; j++) {
+    const int d = digits[(size_t)j * n + lane];
+    if (d == 0) continue;            // not live: chain unchanged
+    const size_t row = ((size_t)(j - j0) * R + d) * c.ch;
+    Fe<S> RX, RY;
+    fe_gather(c, RX, tx + row);
+    fe_gather(c, RY, ty + row);
+    win_step(c, X, Y, Z, st, RX, RY);
+  }
+  return st;
+}
+
 // General Jacobian + Jacobian addition (both live, not +-equal);
 // result bounds (12, 6, 3).  Outputs overwrite X1, Y1, Z1.
+template <int S>
 static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
-                                                    Fe& X1, Fe& Y1, Fe& Z1,
-                                                    const Fe& X2, const Fe& Y2,
-                                                    const Fe& Z2) {
-  Fe Z1Z1, Z2Z2, T1, T2, Z1Z2, U1, U2, S1, H, Rr, ta;
+                                                    Fe<S>& X1, Fe<S>& Y1,
+                                                    Fe<S>& Z1,
+                                                    const Fe<S>& X2,
+                                                    const Fe<S>& Y2,
+                                                    const Fe<S>& Z2) {
+  Fe<S> Z1Z1, Z2Z2, T1, T2, Z1Z2, U1, U2, S1, H, Rr, ta;
   r_mul(c, Z1Z1, Z1, Z1);
   r_mul(c, Z2Z2, Z2, Z2);
   r_mul(c, T1, Y1, Z2);
@@ -485,9 +631,10 @@ static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
 }
 
 // F_p^2: (ar, ai) <- (ar + ai i)^2 with input bounds (9, 9).
-static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe& ar,
-                                               Fe& ai) {
-  Fe ta, tb, ab;
+template <int S>
+static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe<S>& ar,
+                                               Fe<S>& ai) {
+  Fe<S> ta, tb, ab;
   r_add(c, ta, ar, ai);
   r_sub(c, tb, ar, ai, 9);
   r_mul(c, ab, ar, ai);
@@ -496,10 +643,11 @@ static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe& ar,
 }
 
 // F_p^2 Karatsuba: (ar, ai) <- (ar + ai i)(xr + xi i).
-static __device__ __forceinline__ void fp2_mul(const RnsConsts& c, Fe& ar,
-                                               Fe& ai, const Fe& xr,
-                                               const Fe& xi) {
-  Fe t0, t1, ta, tb;
+template <int S>
+static __device__ __forceinline__ void fp2_mul(const RnsConsts& c, Fe<S>& ar,
+                                               Fe<S>& ai, const Fe<S>& xr,
+                                               const Fe<S>& xi) {
+  Fe<S> t0, t1, ta, tb;
   r_mul(c, t0, ar, xr);
   r_mul(c, t1, ai, xi);
   r_add(c, ta, ar, ai);
@@ -510,22 +658,33 @@ static __device__ __forceinline__ void fp2_mul(const RnsConsts& c, Fe& ar,
   r_sub(c, ai, tb, t1, 3);
 }
 
+// Per-lane select between two elements on a warp-uniform flag.
+template <int S>
+static __device__ __forceinline__ void fe_pick(Fe<S>& out, bool take_a,
+                                               const Fe<S>& a,
+                                               const Fe<S>& b) {
+#pragma unroll
+  for (int s = 0; s < S; s++) out.v[s] = take_a ? a.v[s] : b.v[s];
+}
+
 // Channel-major [ch, n] tensor <-> this thread's slots of one lane.
-static __device__ __forceinline__ void fe_load(const RnsConsts& c, Fe& out,
+template <int S>
+static __device__ __forceinline__ void fe_load(const RnsConsts& c, Fe<S>& out,
                                                const float* src, int n,
                                                int lane) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     out.v[s] = ch < c.ch ? src[(size_t)ch * n + lane] : 0.f;
   }
 }
 
+template <int S>
 static __device__ __forceinline__ void fe_store(const RnsConsts& c,
-                                                float* dst, const Fe& v, int n,
-                                                int lane) {
+                                                float* dst, const Fe<S>& v,
+                                                int n, int lane) {
 #pragma unroll
-  for (int s = 0; s < BGN_SLOTS; s++) {
+  for (int s = 0; s < S; s++) {
     const int ch = BGN_CH(c, s);
     if (ch < c.ch) dst[(size_t)ch * n + lane] = v.v[s];
   }
@@ -541,3 +700,11 @@ static inline cudaError_t bgn_prepare(K kernel, int k, int n, dim3* grid,
   *grid = dim3((n + BGN_LANES - 1) / BGN_LANES);
   return err;
 }
+
+// Launch the instantiation for `slots` (4: k <= 64, 6: k <= 96) of a
+// template launcher fn<S>(args...); any other slot count, or k beyond it,
+// is refused before a launch.
+#define BGN_DISPATCH(slots, k, fn, ...)                                   \
+  (((slots) == 4 && (k) <= 64)   ? fn<4>(__VA_ARGS__)                     \
+   : ((slots) == 6 && (k) <= 96) ? fn<6>(__VA_ARGS__)                     \
+                                 : (int)cudaErrorInvalidValue)

@@ -99,6 +99,17 @@ def int_to_naf(x: int, width: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def add(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a + b -> (limbs mod 2^(16L), carry in {0,1}): a sequential ripple."""
+    out = torch.empty_like(a)
+    carry = torch.zeros_like(a[0])
+    for i in range(a.shape[0]):
+        t = a[i] + b[i] + carry
+        carry = t >> LIMB_BITS
+        out[i] = t & LIMB_MASK
+    return out, carry
+
+
 def sub(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a - b (two's complement) -> (limbs mod 2^(16L), borrow in {0,1}).
 

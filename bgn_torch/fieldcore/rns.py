@@ -338,6 +338,39 @@ def r_zero(rns: RNSCtx, n: int) -> RVal:
                             device=rns.m.device), 1)
 
 
+def r_pow_bits(rns: RNSCtx, x: RVal, bits) -> RVal:
+    """x^e in F_p, e as shared MSB-first bits; x [2k, *batch], bound <= 16.
+
+    The square-and-multiply chain makes the same r_muls, in the same
+    operand order, as the pow_loop kernel's plain version, so it runs as
+    that kernel (one launch on the card instead of thousands of small
+    ops; the plain version on the CPU)."""
+    from ..ops import cuda_rns
+    assert x.bound <= 16, x.bound
+    flat = x.v.reshape(x.v.shape[0], -1).contiguous()
+    return RVal(cuda_rns.pow_loop(rns, flat, bits).reshape(x.v.shape), 3)
+
+
+def r_batch_inv(rns: RNSCtx, zs: torch.Tensor, pm2_bits) -> torch.Tensor:
+    """Montgomery batch inversion of a [C, 2k, *batch] stack of nonzero
+    values (each bound <= 6): prefix products along the leading axis, ONE
+    Fermat inversion of the total, then a backward pass (~3 r_muls per
+    element; zero entries must be substituted by the caller).  Returns
+    [C, 2k, *batch] residues of the inverses, bound 3."""
+    acc = rns.one_rns.reshape((-1,) + (1,) * (zs.dim() - 2)) \
+        .expand(zs.shape[1:])
+    pres = []
+    for z in zs:                          # pre[i] = z_0 * ... * z_{i-1}
+        pres.append(acc)
+        acc = r_mul(rns, RVal(acc, 3), RVal(z, 6)).v
+    t = r_pow_bits(rns, RVal(acc, 3), pm2_bits).v        # total^-1
+    invs = [None] * len(pres)
+    for i in range(len(pres) - 1, -1, -1):
+        invs[i] = r_mul(rns, RVal(t, 3), RVal(pres[i], 3)).v
+        t = r_mul(rns, RVal(t, 3), RVal(zs[i], 6)).v
+    return torch.stack(invs, dim=0)
+
+
 # ---------------------------------------------------------------------------
 # Conversions
 # ---------------------------------------------------------------------------

@@ -3,8 +3,8 @@
 The port's counterpart of `bgn_tpu/ops/bsgs.py`: the same host-built,
 salted, sorted digest tables and the same reference indexing (a hit at
 giant step i with table value j means m = i*bound + j + 1; the inverse is
-tried second and its hit negated).  The GT giant-step scan runs in RNS;
-candidates convert to canonical limbs only for the digest lookup, and
+tried second and its hit negated).  The G1 and GT giant-step scans run
+in RNS; candidates convert to canonical limbs only for the digest lookup, and
 every digest hit is verified against the full stored limbs.
 
 Digests are uint32 sums with wraparound in the JAX package; here they are
@@ -196,6 +196,76 @@ def _first_hit(hits: torch.Tensor, vals: torch.Tensor, bound: int):
     i_star = torch.argmax(hits, dim=0)
     val = torch.gather(vals, 0, i_star[None])[0]
     return found.to(torch.int64), i_star * bound + val + 1
+
+
+def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
+                base_inf):
+    """G1 giant-step scan + lookup for csk in RNS form (RVals [2k, B], the
+    raw output of rns_pairing.scalar_mul_rns).  base_inf: [B] identity
+    mask of the input ciphertexts (their raw residues are garbage).
+
+    The chain uses the incomplete mixed addition: candidate i hits
+    V == -addend only when m == (i+1)*bound (the true sum is the
+    identity and comes out as Z == 0), and V == +addend only after the
+    true hit at step i-2; a Z == 0 candidate keeps Z == 0 and is masked
+    from the lookup.  Returns (found {0,1}, m signed) int64 [B]."""
+    bound = tables.bound
+    k2 = 2 * rns.k
+    B = Xr.v.shape[-1]
+    L = ctx.L
+    C = bound + 1
+
+    negY = rns.kp[:, Yr.bound:Yr.bound + 1] - Yr.v
+    negY = torch.where(negY < 0, negY + rns.m, negY)
+    X = torch.cat([Xr.v, Xr.v], dim=-1)                  # [2k, 2B]
+    Y = torch.cat([Yr.v, negY], dim=-1)
+    Z = torch.cat([Zr.v, Zr.v], dim=-1)
+    g = tables.point("gamma_inv_g1")
+    gx = rn.to_rns_mont(rns, g.x.reshape(L, 1)).v.expand(k2, 2 * B)
+    gy = rn.to_rns_mont(rns, g.y.reshape(L, 1)).v.expand(k2, 2 * B)
+    Xs, Ys, Zs = [], [], []
+    for i in range(C):                          # collect BEFORE the add
+        Xs.append(X)
+        Ys.append(Y)
+        Zs.append(Z)
+        if i < C - 1:
+            X, Y, Z = rp._add_pt(rns, X, Y, Z, rp._pt(gx), rp._pt(gy))
+
+    def wide(vals):                  # C x [2k, 2B] -> [2k, C * 2B]
+        return torch.stack(list(vals), dim=1).reshape(k2, C * 2 * B)
+
+    # identity mask from canonical limb Z (no exact zero test in RNS)
+    Zl = rn.from_rns_mont(rns, rn.RVal(wide(Zs), 6))
+    inf2 = torch.cat([base_inf, base_inf], dim=-1).to(torch.int64)
+    zmask = lb.is_zero(Zl).reshape(C, 2 * B) | inf2[None]
+    one_b = rns.one_rns.expand(k2, 2 * B)
+    zsub = torch.where(zmask[:, None].to(torch.bool), one_b[None],
+                       torch.stack(Zs, dim=0))          # [C, 2k, 2B]
+    zinv = rn.r_batch_inv(rns, zsub, ctx.pm2_bits)
+
+    iw = rn.RVal(wide(zinv), 3)
+    i2 = rn.r_mul(rns, iw, iw)
+    i3 = rn.r_mul(rns, i2, iw)
+    xl = rn.from_rns_mont(rns, rn.r_mul(rns, rn.RVal(wide(Xs), 27), i2))
+    yl = rn.from_rns_mont(rns, rn.r_mul(rns, rn.RVal(wide(Ys), 27), i3))
+    mask4 = zmask.reshape(C, 2, B)
+    xl = lb.select(mask4, torch.zeros_like(xl.reshape(L, C, 2, B)),
+                   xl.reshape(L, C, 2, B))
+    yl = lb.select(mask4, torch.zeros_like(yl.reshape(L, C, 2, B)),
+                   yl.reshape(L, C, 2, B))
+
+    words = torch.cat([xl, yl], dim=0)                   # [2L, C, 2, B]
+    hits, vals = _lookup(tables.table_g1, words)
+    hits = hits * (1 - mask4)
+    found_p, m_p = _first_hit(hits[:, 0], vals[:, 0], bound)
+    found_n, m_n = _first_hit(hits[:, 1], vals[:, 1], bound)
+
+    # csk == identity <=> m = 0 (candidate 0 is csk itself)
+    is_zero_ct = mask4[0, 0] | inf2[:B]
+    m_signed = torch.where(found_p.to(torch.bool), m_p, -m_n)
+    m_signed = torch.where(is_zero_ct.to(torch.bool),
+                           torch.zeros_like(m_signed), m_signed)
+    return is_zero_ct | found_p | found_n, m_signed
 
 
 def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):

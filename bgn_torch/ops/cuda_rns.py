@@ -1,5 +1,5 @@
-"""The four RNS loop kernels of the main path, their wrappers and their
-plain PyTorch versions.
+"""The seven RNS loop kernels of the port's paths, their wrappers and
+their plain PyTorch versions.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version (the same step functions of ops/rns_pairing.py under
@@ -17,14 +17,22 @@ Kernels (TPU kernel replaced -> CUDA source):
                 -> csrc/fp2_pow_loop.cu
   dual_ladder   bgn_tpu/ops/pallas_rns.py:dual_ladder_pallas
                 -> csrc/dual_ladder.cu
+  ladder_loop   bgn_tpu/ops/pallas_rns.py:ladder_loop_pallas
+                -> csrc/ladder_loop.cu
+  window_ladder_tab
+                bgn_tpu/ops/pallas_rns.py:window_ladder_tab_pallas
+                -> csrc/window_ladder_tab.cu
+  window_ladder bgn_tpu/ops/pallas_rns.py:window_ladder_pallas
+                -> csrc/window_ladder.cu
 
-The kernels take the narrow RNS path only (k <= 64 channels per base,
-which covers keys to ~700 bits); a wrapper raises ValueError for a CUDA
-tensor with k > 64.  They run one warp per lane with the loop state in
-registers (each thread holds up to four channels), the RNS constants in
-shared memory, and compute the base extensions as exact int32 dot
-products; csrc/rns.cuh says what bounds them and why.
-They agree with the plain versions bit for bit.
+Every kernel is built for two slot counts S (channels per thread): S = 4
+for k <= 64 channels per base and S = 6 for k <= 96, which covers 1024-bit
+keys (k = 90); `slots_for` picks S from k, and a wrapper raises
+ValueError for a CUDA tensor with k > 96.  They run one warp per lane
+with the loop state in registers, the RNS constants in shared memory, and
+compute the base extensions as exact int32 dot products; csrc/rns.cuh
+says what bounds them and why.  They agree with the plain versions bit
+for bit.
 """
 
 from __future__ import annotations
@@ -45,8 +53,20 @@ torch.backends.cudnn.allow_tf32 = False
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
 
-K_KERNEL_MAX = rn._K_NARROW        # csrc/rns.cuh BGN_KMAX
+SLOTS = (4, 6)                     # csrc/rns.cuh instantiations of Fe<S>
+K_KERNEL_MAX = 16 * max(SLOTS)     # 2k channels over 32 threads x S slots
 _KP_COLS = rn._KMAX + 1            # columns of RNSCtx.kp
+
+
+def slots_for(k: int) -> int:
+    """The smallest kernel instantiation S that holds 2k channels."""
+    for s in SLOTS:
+        if k <= 16 * s:
+            return s
+    raise ValueError(
+        f"the CUDA kernels take k <= {K_KERNEL_MAX} channels per base, got "
+        f"k = {k} (ROADMAP.md queue 3: wider keys need the constants in "
+        "global memory)")
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +162,7 @@ def _launch(entry: str, *args):
 def _check_state(rns: RNSCtx, *arrs):
     """Device, dtype, shape and contiguity checks for kernel inputs."""
     ch = 2 * rns.k
-    if rns.k > K_KERNEL_MAX:
-        raise ValueError(f"the CUDA kernels take k <= {K_KERNEL_MAX} "
-                         f"channels per base, got k = {rns.k}")
+    slots_for(rns.k)
     n = arrs[0].shape[-1]
     for a in arrs:
         if a.device != rns.m.device:
@@ -212,6 +230,7 @@ def miller_loop(rns: RNSCtx, ax, ay, xb, yb, digits):
     fr, fi = torch.empty_like(ax), torch.empty_like(ax)
     if n:
         _launch("bgn_miller_loop", _ptr(const_blob(rns)), rns.k,
+                slots_for(rns.k),
                 _ptr(ax), _ptr(ay), _ptr(xb), _ptr(yb), _ptr(dg),
                 dg.numel(), _ptr(fr), _ptr(fi), n)
         miller_loop.launches += 1
@@ -245,8 +264,9 @@ def pow_loop(rns: RNSCtx, x, bits):
     bt = _digits_dev(bits, x.device)
     out = torch.empty_like(x)
     if n:
-        _launch("bgn_pow_loop", _ptr(const_blob(rns)), rns.k, _ptr(x),
-                _ptr(bt), bt.numel(), _ptr(out), n)
+        _launch("bgn_pow_loop", _ptr(const_blob(rns)), rns.k,
+                slots_for(rns.k), _ptr(x), _ptr(bt), bt.numel(), _ptr(out),
+                n)
         pow_loop.launches += 1
     return out
 
@@ -289,8 +309,9 @@ def fp2_pow_loop(rns: RNSCtx, xr, xi, digits):
     dg = _digits_dev(digits, xr.device)
     owr, owi = torch.empty_like(xr), torch.empty_like(xr)
     if n:
-        _launch("bgn_fp2_pow_loop", _ptr(const_blob(rns)), rns.k, _ptr(xr),
-                _ptr(xi), _ptr(dg), dg.numel(), _ptr(owr), _ptr(owi), n)
+        _launch("bgn_fp2_pow_loop", _ptr(const_blob(rns)), rns.k,
+                slots_for(rns.k), _ptr(xr), _ptr(xi), _ptr(dg), dg.numel(),
+                _ptr(owr), _ptr(owi), n)
         fp2_pow_loop.launches += 1
     return owr, owi
 
@@ -323,6 +344,58 @@ def _jac_add_full(rns: RNSCtx, X1, Y1, Z1, X2, Y2, Z2):
     return X3.v, Y3.v, Z3.v
 
 
+def _gather_rows(tab, digits):
+    """Row d of window j of an (x, y) table, each [J, R, 2k], for per-lane
+    digits [Jd, N]: the gathered stream (gx, gy), each [Jd, 2k, N]."""
+    tx, ty = tab
+    d = torch.as_tensor(digits).to(device=tx.device, dtype=torch.int64)
+    j = torch.arange(d.shape[0], device=tx.device)[:, None]
+    return tx[j, d].transpose(1, 2), ty[j, d].transpose(1, 2)
+
+
+def _window_chain(rns: RNSCtx, gx, gy, live):
+    """LSB-first fixed-base window chain over gathered rows (gx, gy
+    [Jd, 2k, N], live [Jd, N] bool): the first live window sets the
+    accumulator to its row (Z = 1), a later one adds it (_add_pt, computed
+    for every lane and selected, as the TPU kernels do).  Returns
+    (X, Y, Z, started); a lane never started keeps X = Y = 0, Z = 1."""
+    Jd, ch, n = gx.shape
+    one = rns.one_rns.expand(ch, n)
+    X = Y = torch.zeros((ch, n), dtype=torch.float32, device=one.device)
+    Z = one
+    st = torch.zeros((n,), dtype=torch.bool, device=one.device)
+    for j in range(Jd):
+        rx, ry, lv = gx[j], gy[j], live[j]
+        aX, aY, aZ = rp._add_pt(rns, X, Y, Z, rp._pt(rx), rp._pt(ry))
+        init, upd = (lv & ~st)[None], (lv & st)[None]
+        X = torch.where(init, rx, torch.where(upd, aX, X))
+        Y = torch.where(init, ry, torch.where(upd, aY, Y))
+        Z = torch.where(init, one, torch.where(upd, aZ, Z))
+        st = st | lv
+    return X, Y, Z, st
+
+
+def _check_tables(rns: RNSCtx, *tabs) -> int:
+    """Window tables: contiguous float32 [J, R, 2k] on the key's device;
+    returns R."""
+    ch = 2 * rns.k
+    R = tabs[0].shape[1]
+    for t in tabs:
+        if (t.device != rns.m.device or t.dtype != torch.float32
+                or t.dim() != 3 or t.shape[1:] != (R, ch)
+                or not t.is_contiguous()):
+            raise ValueError("window tables must be contiguous float32 "
+                             f"[J, {R}, {ch}] on {rns.m.device}")
+    return R
+
+
+def _window_digits(digits, R: int, device) -> torch.Tensor:
+    dg = _digits_dev(digits, device)
+    if dg.numel() and (int(dg.min()) < 0 or int(dg.max()) >= R):
+        raise ValueError(f"window digits must lie in [0, {R})")
+    return dg
+
+
 def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     """C = P^(+-m) * Q^r: two radix-R fixed-base window chains (windows
     j < Jm from P's table, the rest from Q's), then the Jacobian combine.
@@ -331,29 +404,11 @@ def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     of window j is base^(d*R^j); row 0 is the identity); digits: [Jt, N]
     window digits (m's then r's, least significant first); m_neg: [N]
     {0,1}.  Returns (X, Y, Z) [2k, N]; Z = 0 encodes the identity."""
-    Jt, n = digits.shape
-    digits = digits.to(torch.int64)
-    ch = 2 * rns.k
-    one = rns.one_rns.expand(ch, n)
-    zero = torch.zeros((ch, n), dtype=torch.float32, device=one.device)
-    nolive = torch.zeros((n,), dtype=torch.bool, device=one.device)
-    acc = [[zero, zero, one, nolive], [zero, zero, one, nolive]]
-    for j in range(Jt):
-        tx, ty = p_tab if j < Jm else q_tab
-        jj = j if j < Jm else j - Jm
-        d = digits[j]
-        rx, ry = tx[jj][d].T, ty[jj][d].T           # [2k, N] gathered rows
-        live = d != 0
-        X, Y, Z, st = acc[0 if j < Jm else 1]
-        aX, aY, aZ = rp._add_pt(rns, X, Y, Z, rp._pt(rx), rp._pt(ry))
-        init = (live & ~st)[None]
-        upd = (live & st)[None]
-        acc[0 if j < Jm else 1] = [
-            torch.where(init, rx, torch.where(upd, aX, X)),
-            torch.where(init, ry, torch.where(upd, aY, Y)),
-            torch.where(init, one, torch.where(upd, aZ, Z)),
-            st | live]
-    (X1, Y1, Z1, st1), (X2, Y2, Z2, st2) = acc
+    digits = torch.as_tensor(digits).to(torch.int64)
+    X1, Y1, Z1, st1 = _window_chain(rns, *_gather_rows(p_tab, digits[:Jm]),
+                                    digits[:Jm] != 0)
+    X2, Y2, Z2, st2 = _window_chain(rns, *_gather_rows(q_tab, digits[Jm:]),
+                                    digits[Jm:] != 0)
     negY = rns.kp[:, 27:28] - Y1                    # 27p - y, bound 27
     negY = torch.where(negY < 0, negY + rns.m, negY)
     Y1 = torch.where(m_neg.to(torch.bool)[None], negY, Y1)
@@ -361,8 +416,8 @@ def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     both, l1, l2 = (st1 & st2)[None], st1[None], st2[None]
     return (torch.where(both, X3, torch.where(l1, X1, X2)),
             torch.where(both, Y3, torch.where(l1, Y1, Y2)),
-            torch.where(both, Z3, torch.where(l1, Z1,
-                                              torch.where(l2, Z2, zero))))
+            torch.where(both, Z3, torch.where(l1, Z1, torch.where(
+                l2, Z2, torch.zeros_like(Z2)))))
 
 
 def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
@@ -370,30 +425,19 @@ def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     tx = p_tab[0]
     if _is_cpu(tx):
         return dual_ladder_plain(rns, p_tab, q_tab, Jm, digits, m_neg)
-    ch = 2 * rns.k
-    if rns.k > K_KERNEL_MAX:
-        raise ValueError(f"the CUDA kernels take k <= {K_KERNEL_MAX} "
-                         f"channels per base, got k = {rns.k}")
+    S = slots_for(rns.k)
+    R = _check_tables(rns, *p_tab, *q_tab)
     Jt, n = digits.shape
-    R = tx.shape[1]
-    for t in (*p_tab, *q_tab):
-        if (t.device != rns.m.device or t.dtype != torch.float32
-                or t.dim() != 3 or t.shape[1:] != (R, ch)
-                or not t.is_contiguous()):
-            raise ValueError("window tables must be contiguous float32 "
-                             f"[J, {R}, {ch}] on {rns.m.device}")
     if not (0 <= Jm <= p_tab[0].shape[0] and Jt - Jm <= q_tab[0].shape[0]):
         raise ValueError("more windows than the tables hold")
-    dg = _digits_dev(digits, tx.device)
-    if n and (int(dg.min()) < 0 or int(dg.max()) >= R):
-        raise ValueError(f"window digits must lie in [0, {R})")
+    dg = _window_digits(digits, R, tx.device)
     mn = _digits_dev(m_neg, tx.device).reshape(-1)
     if mn.numel() != n:
         raise ValueError("m_neg must have one entry per lane")
-    X = torch.empty((ch, n), dtype=torch.float32, device=tx.device)
+    X = torch.empty((2 * rns.k, n), dtype=torch.float32, device=tx.device)
     Y, Z = torch.empty_like(X), torch.empty_like(X)
     if n:
-        _launch("bgn_dual_ladder", _ptr(const_blob(rns)), rns.k,
+        _launch("bgn_dual_ladder", _ptr(const_blob(rns)), rns.k, S,
                 _ptr(p_tab[0]), _ptr(p_tab[1]), _ptr(q_tab[0]),
                 _ptr(q_tab[1]), R, Jm, Jt, _ptr(dg), _ptr(mn),
                 _ptr(X), _ptr(Y), _ptr(Z), n)
@@ -403,4 +447,125 @@ def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
 
 dual_ladder.launches = 0
 
-WRAPPERS = (miller_loop, pow_loop, fp2_pow_loop, dual_ladder)
+
+# ---------------------------------------------------------------------------
+# 5. G1 double-and-add ladder (L1 decrypt: csk = C^q1)
+# ---------------------------------------------------------------------------
+
+
+def ladder_loop_plain(rns: RNSCtx, X, Y, Z, ax, ay, digits):
+    """base^e in G1 from the start state (X, Y, Z) over shared MSB-first
+    digits (plain bits or signed NAF), every digit consumed: a doubling
+    (_dbl_pt) per digit, then + A on +1, + (-A) on -1 (_add_pt).  ax, ay:
+    the affine base, bound 3.  Returns (X, Y, Z), bounds (27, 27, 6); a
+    final V == -A gives Z = 0, the identity."""
+    nay = rp._neg_coord(rns, ay)
+    for d in _digits_host(digits):
+        X, Y, Z = rp._dbl_pt(rns, X, Y, Z)
+        if d != 0:
+            X, Y, Z = rp._add_pt(rns, X, Y, Z, rp._pt(ax),
+                                 rp._pt(ay if d > 0 else nay))
+    return X, Y, Z
+
+
+def ladder_loop(rns: RNSCtx, X, Y, Z, ax, ay, digits):
+    """Wrapper: the whole ladder as one kernel on the card.  X, Y, Z, ax,
+    ay: [2k, N] residues; digits: [nd] shared."""
+    if _is_cpu(X):
+        return ladder_loop_plain(rns, X, Y, Z, ax, ay, digits)
+    n = _check_state(rns, X, Y, Z, ax, ay)
+    dg = _digits_dev(digits, X.device)
+    ox, oy, oz = (torch.empty_like(X) for _ in range(3))
+    if n:
+        _launch("bgn_ladder_loop", _ptr(const_blob(rns)), rns.k,
+                slots_for(rns.k), _ptr(X), _ptr(Y), _ptr(Z), _ptr(ax),
+                _ptr(ay), _ptr(dg), dg.numel(), _ptr(ox), _ptr(oy),
+                _ptr(oz), n)
+        ladder_loop.launches += 1
+    return ox, oy, oz
+
+
+ladder_loop.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 6. Fixed-base window chain from the table (EncryptDeterministic)
+# ---------------------------------------------------------------------------
+
+
+def window_ladder_plain(rns: RNSCtx, gx, gy, ginf):
+    """The window chain over a gathered stream (the gathered-row branch of
+    the JAX package's fixed_base_mul_rns): gx, gy [Jd, 2k, N] rows (bound
+    3), ginf [Jd, N] nonzero where the row is the identity.  Returns
+    (X, Y, Z); a lane with no live window gets X = Y = Z = 0."""
+    X, Y, Z, st = _window_chain(rns, gx, gy, torch.as_tensor(ginf) == 0)
+    return X, Y, torch.where(st[None], Z, torch.zeros_like(Z))
+
+
+def window_ladder_tab_plain(rns: RNSCtx, tab, digits):
+    """base^e for per-lane radix-R digits [Jd, N] (least significant
+    first) from the (x, y) table [J, R, 2k] of base: rows gathered, then
+    window_ladder_plain (row 0 of every window is the identity)."""
+    digits = torch.as_tensor(digits).to(torch.int64)
+    return window_ladder_plain(rns, *_gather_rows(tab, digits), digits == 0)
+
+
+def window_ladder_tab(rns: RNSCtx, tab, digits):
+    """Wrapper: the chain with in-kernel row reads, one kernel on the
+    card.  tab: (x, y) [J, R, 2k]; digits: [Jd, N], Jd <= J."""
+    tx = tab[0]
+    if _is_cpu(tx):
+        return window_ladder_tab_plain(rns, tab, digits)
+    S = slots_for(rns.k)
+    R = _check_tables(rns, *tab)
+    Jd, n = digits.shape
+    if Jd > tx.shape[0]:
+        raise ValueError(f"{Jd} windows, the table holds {tx.shape[0]}")
+    dg = _window_digits(digits, R, tx.device)
+    X = torch.empty((2 * rns.k, n), dtype=torch.float32, device=tx.device)
+    Y, Z = torch.empty_like(X), torch.empty_like(X)
+    if n:
+        _launch("bgn_window_ladder_tab", _ptr(const_blob(rns)), rns.k, S,
+                _ptr(tab[0]), _ptr(tab[1]), R, Jd, _ptr(dg), _ptr(X),
+                _ptr(Y), _ptr(Z), n)
+        window_ladder_tab.launches += 1
+    return X, Y, Z
+
+
+window_ladder_tab.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# 7. Fixed-base window chain over pre-gathered rows
+# ---------------------------------------------------------------------------
+
+
+def window_ladder(rns: RNSCtx, gx, gy, ginf):
+    """Wrapper: the chain over a gathered stream, one kernel on the card.
+    gx, gy: contiguous float32 [Jd, 2k, N]; ginf: [Jd, N]."""
+    if _is_cpu(gx):
+        return window_ladder_plain(rns, gx, gy, ginf)
+    S = slots_for(rns.k)
+    Jd, ch, n = gx.shape
+    for g in (gx, gy):
+        if (g.device != rns.m.device or g.dtype != torch.float32
+                or g.shape != (Jd, 2 * rns.k, n) or not g.is_contiguous()):
+            raise ValueError("gathered rows must be contiguous float32 "
+                             f"[{Jd}, {2 * rns.k}, {n}] on {rns.m.device}")
+    gi = _digits_dev(torch.as_tensor(ginf) != 0, gx.device)
+    if gi.shape != (Jd, n):
+        raise ValueError(f"ginf must be [{Jd}, {n}]")
+    X = torch.empty((ch, n), dtype=torch.float32, device=gx.device)
+    Y, Z = torch.empty_like(X), torch.empty_like(X)
+    if n:
+        _launch("bgn_window_ladder", _ptr(const_blob(rns)), rns.k, S,
+                _ptr(gx), _ptr(gy), _ptr(gi), Jd, _ptr(X), _ptr(Y), _ptr(Z),
+                n)
+        window_ladder.launches += 1
+    return X, Y, Z
+
+
+window_ladder.launches = 0
+
+WRAPPERS = (miller_loop, pow_loop, fp2_pow_loop, dual_ladder, ladder_loop,
+            window_ladder_tab, window_ladder)

@@ -1,12 +1,14 @@
 """F_p^2 = F_p[i]/(i^2+1) elements as limb tensors [2, L, *batch]
 ([0] = real, [1] = imaginary, Montgomery form): the port's counterpart of
-the parts of `bgn_tpu/ops/fp2.py` that the pairing's identity select
-needs.  The arithmetic itself runs in RNS (ops/rns_pairing.py)."""
+the parts of `bgn_tpu/ops/fp2.py` that the pairing's identity select and
+the L2 MultConst's negation need.  The arithmetic itself runs in RNS
+(ops/rns_pairing.py)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..fieldcore import montgomery as mg
 from ..fieldcore.montgomery import MontCtx
 
 
@@ -20,3 +22,8 @@ def one(ctx: MontCtx, batch_shape=()):
 def select(mask, x, y):
     """where(mask, x, y) with mask of batch shape."""
     return torch.where(mask.to(torch.bool)[None, None], x, y)
+
+
+def conj(ctx: MontCtx, x):
+    """a - bi: the inverse of a unitary (GT) element."""
+    return torch.stack([x[0], mg.mod_neg(ctx, x[1])], dim=0)

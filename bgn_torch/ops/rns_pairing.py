@@ -22,7 +22,7 @@ from ..fieldcore import limbs as lb
 from ..fieldcore import rns as rn
 from ..fieldcore.montgomery import MontCtx
 from ..fieldcore.rns import RNSCtx, RVal
-from .curve import AffinePoint
+from .curve import AffinePoint, JacPoint
 
 # Loop-invariant bounds (multiples of p).
 _BX, _BY, _BZ, _BF = 27, 27, 6, 9
@@ -38,6 +38,13 @@ def _neg_coord(rns, v):
     y-coordinate of the negated point, still bound 3."""
     t = rns.kp[:, 3:4] - v
     return torch.where(t < 0, t + rns.m, t)
+
+
+def _flat(shape) -> int:
+    n = 1
+    for s in shape:
+        n *= s
+    return n
 
 
 def _dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
@@ -123,6 +130,37 @@ def _add_step(rns: RNSCtx, X1, Y1, Z1, fr, fi, ax, ay, xb, yb):
     return X3.v, Y3.v, Z3.v, f_re.v, f_im.v
 
 
+def _dbl_pt(rns: RNSCtx, X, Y, Z):
+    """Jacobian doubling (a = 1 curve), no line math; same formulas and
+    bound invariants as _dbl_step (9 r_muls, 9 r_adds, 4 r_subs)."""
+    X, Y, Z = RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
+
+    def muls(*pairs):
+        return rn.r_mul_many(rns, pairs)
+
+    def add(u, v):
+        return rn.r_add(rns, u, v)
+
+    def sub(u, v):
+        return rn.r_sub(rns, u, v)
+
+    XX, YY, ZZ = muls((X, X), (Y, Y), (Z, Z))
+    YYYY, ZZZZ, T, YZ = muls((YY, YY), (ZZ, ZZ), (X, YY), (Y, Z))
+    M = add(add(XX, add(XX, XX)), ZZZZ)
+    S = add(T, T)
+    S = add(S, S)
+    (MM,) = muls((M, M))
+    X3 = sub(sub(MM, S), S)
+    Y8 = add(YYYY, YYYY)
+    Y8 = add(Y8, Y8)
+    Y8 = add(Y8, Y8)
+    (MSX3,) = muls((M, sub(S, X3)))
+    Y3 = sub(MSX3, Y8)
+    Z3 = add(YZ, YZ)
+    assert X3.bound <= _BX and Y3.bound <= _BY and Z3.bound <= _BZ
+    return X3.v, Y3.v, Z3.v
+
+
 def _add_pt(rns: RNSCtx, X1, Y1, Z1, ax, ay):
     """Mixed addition v + a, no line math, no completeness selects
     (valid when v != +-a and neither is the identity; 11 r_muls)."""
@@ -192,6 +230,122 @@ def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
     return AffinePoint(xl, yl, dead.to(torch.int64))
 
 
+def add_complete_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
+                     b: AffinePoint) -> AffinePoint:
+    """COMPLETE affine a + b -> normalized AffinePoint (homomorphic L1
+    Add/Sub, reference bgn.go:442-497): one incomplete mixed addition and
+    one doubling computed for every lane, then the completeness selects
+    of the limb madd, driven by exact zero tests on the canonical limbs of
+    H = x_b - x_a and R = y_b - y_a (RNS has no cheap zero test)."""
+    L = ctx.L
+    batch_shape = tuple(a.x.shape[1:])
+    flat = _flat(batch_shape)
+
+    def prep(x):
+        return rn.to_rns_mont(rns, x.reshape(L, flat))
+
+    axr, ayr, bxr, byr = prep(a.x), prep(a.y), prep(b.x), prep(b.y)
+    one = rns.one_rns.expand_as(axr.v)
+    Xa, Ya, Za = _add_pt(rns, axr.v, ayr.v, one, bxr, byr)
+    Xd, Yd, Zd = _dbl_pt(rns, axr.v, ayr.v, one)
+
+    h_zero = lb.is_zero(rn.from_rns_mont(rns, rn.r_sub(rns, bxr, axr)))
+    r_zero = lb.is_zero(rn.from_rns_mont(rns, rn.r_sub(rns, byr, ayr)))
+    a_inf, b_inf = a.inf.reshape(-1), b.inf.reshape(-1)
+    live = (1 - a_inf) * (1 - b_inf)
+    same = h_zero & r_zero & live
+    opp = h_zero & (1 - r_zero) & live
+
+    def sel(m, u, v):
+        return torch.where(m.to(torch.bool)[None], u, v)
+
+    X, Y, Z = sel(same, Xd, Xa), sel(same, Yd, Ya), sel(same, Zd, Za)
+    zero = torch.zeros_like(Z)
+    Z = sel(opp, zero, Z)
+    # a == O -> b (affine, Z = 1); b == O (a live) -> a; O + O -> O
+    X, Y, Z = sel(a_inf, bxr.v, X), sel(a_inf, byr.v, Y), sel(a_inf, one, Z)
+    bo = b_inf * (1 - a_inf)
+    X, Y, Z = sel(bo, axr.v, X), sel(bo, ayr.v, Y), sel(bo, one, Z)
+    Z = sel(a_inf & b_inf, zero, Z)
+    aff = normalize_rns(ctx, rns, X, Y, Z)
+    return AffinePoint(aff.x.reshape((L,) + batch_shape),
+                       aff.y.reshape((L,) + batch_shape),
+                       aff.inf.reshape(batch_shape))
+
+
+def neg_y_rns(rns: RNSCtx, Y, bound: int, mask):
+    """Residues of the negated y-coordinate (bound*p - y) where mask,
+    unchanged elsewhere; bound preserved."""
+    t = rns.kp[:, bound:bound + 1] - Y
+    t = torch.where(t < 0, t + rns.m, t)
+    return torch.where(torch.as_tensor(mask, device=Y.device)
+                       .to(torch.bool)[None], t, Y)
+
+
+def fixed_base_mul_rns(ctx: MontCtx, rns: RNSCtx, table, digits, raw=False):
+    """base^e via the radix-256 window table (x, y) [J, R, 2k] of base
+    (the window_ladder_tab kernel): LSB-first window accumulation, one
+    mixed addition per live window, flag-exact identity handling; for
+    exponents below ord(base) no addition is degenerate (JAX package
+    docstring).  digits: [Jd, B] per-lane window digits, least significant
+    first.  raw=True returns the (X, Y, Z) RVals; else a limb-Montgomery
+    JacPoint.  Z = 0 (exact zero residues) for e = 0."""
+    from . import cuda_rns
+    dg = torch.as_tensor(digits).to(table[0].device)
+    out = (RVal(v, b) for v, b in zip(
+        cuda_rns.window_ladder_tab(rns, table, dg), (_BX, _BY, _BZ)))
+    if raw:
+        return tuple(out)
+    return JacPoint(*(rn.from_rns_mont(rns, v) for v in out))
+
+
+def scalar_mul_rns(ctx: MontCtx, rns: RNSCtx, base: AffinePoint, digits):
+    """base^e in G1 via an RNS double-and-add ladder (the ladder_loop
+    kernel); e = shared MSB-first digits, plain bits or signed NAF, first
+    digit +1 (the decrypt exponent q1, bgn.go:222-223).  Returns the raw
+    (X, Y, Z) RVals over the flattened batch (the JAX package's raw=True,
+    its only form in use): identity-base lanes carry garbage residues,
+    which the caller masks via base.inf."""
+    from . import cuda_rns
+    flat = _flat(base.x.shape[1:])
+    ax = rn.to_rns_mont(rns, base.x.reshape(ctx.L, flat)).v.contiguous()
+    ay = rn.to_rns_mont(rns, base.y.reshape(ctx.L, flat)).v.contiguous()
+    one = rns.one_rns.expand_as(ax).contiguous()
+    X, Y, Z = cuda_rns.ladder_loop(rns, ax, ay, one, ax, ay, digits[1:])
+    return RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
+
+
+def scalar_mul_vec_rns(ctx: MontCtx, rns: RNSCtx, base: AffinePoint, bits):
+    """base^k with a PER-ELEMENT exponent: base [L, *batch], bits
+    [nbits, *batch] MSB-first plain bits (k >= 0); the RNS MultConst path
+    (reference MultConst, bgn.go:253-291).  The incomplete additions are
+    safe while 2^nbits < min(q1, q2) (JAX package docstring; the caller
+    checks nbits).  Returns the raw (X, Y, Z) RVals over the flat batch
+    (the JAX package's raw=True); k = 0 and identity-base lanes have
+    Z = 0."""
+    flat = _flat(base.x.shape[1:])
+    ax = rn.to_rns_mont(rns, base.x.reshape(ctx.L, flat)).v
+    ay = rn.to_rns_mont(rns, base.y.reshape(ctx.L, flat)).v
+    one = rns.one_rns.expand_as(ax)
+    bits2 = torch.as_tensor(bits).to(ax.device).reshape(-1, flat) \
+        .to(torch.bool)
+    X, Y, Z = ax, ay, one
+    started = torch.zeros((flat,), dtype=torch.bool, device=ax.device)
+    for b in bits2:
+        dX, dY, dZ = _dbl_pt(rns, X, Y, Z)
+        aX, aY, aZ = _add_pt(rns, dX, dY, dZ, _pt(ax), _pt(ay))
+        st, newly = started[None], (~started & b)[None]
+        bb = b[None]
+        X = torch.where(st, torch.where(bb, aX, dX), torch.where(newly, ax, X))
+        Y = torch.where(st, torch.where(bb, aY, dY), torch.where(newly, ay, Y))
+        Z = torch.where(st, torch.where(bb, aZ, dZ),
+                        torch.where(newly, one, Z))
+        started = started | b
+    dead = ~started | base.inf.reshape(-1).to(torch.bool)
+    Z = torch.where(dead[None], torch.zeros_like(Z), Z)
+    return RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
+
+
 # ---------------------------------------------------------------------------
 # F_p^2 in RNS: pairs (re, im) of RVals; carry invariant (9p, 9p)
 # ---------------------------------------------------------------------------
@@ -220,20 +374,13 @@ def _fp2_conj(rns, x):
     return a, rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
 
 
-def _rns_pow(rns, x: RVal, bits) -> RVal:
-    """x^e, e as shared MSB-first bits (pow_loop kernel); x.bound <= 16."""
-    from . import cuda_rns
-    assert x.bound <= 16, x.bound
-    return RVal(cuda_rns.pow_loop(rns, x.v.contiguous(), bits), 3)
-
-
 def _fp2_inv(rns, x, pm2_bits):
     """1/(a+bi) = (a-bi)/(a^2+b^2); the Fermat inversion of the norm is
-    one pow_loop."""
+    one pow_loop (rn.r_pow_bits)."""
     a, b = x
     aa, bb = rn.r_mul_many(rns, [(a, a), (b, b)])
     norm = rn.r_add(rns, aa, bb)
-    ninv = _rns_pow(rns, norm, pm2_bits)
+    ninv = rn.r_pow_bits(rns, norm, pm2_bits)
     nb = rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
     return rn.r_mul(rns, a, ninv), rn.r_mul(rns, nb, ninv)
 
@@ -253,6 +400,30 @@ def _fp2_pow_bits(rns, x, digits, unitary=False):
     ar, ai = cuda_rns.fp2_pow_loop(rns, xr.v.contiguous(),
                                    xi.v.contiguous(), digits)
     return RVal(ar, 9), RVal(ai, 9)
+
+
+def fp2_pow_vec_rns(ctx: MontCtx, rns: RNSCtx, z, bits):
+    """z^k with a per-element exponent for GT elements (limbs
+    [2, L, *batch] in and out; bits [nbits, *batch] MSB-first): the RNS L2
+    MultConst path.  Field products are complete, so no order bound is
+    needed."""
+    batch_shape = tuple(z.shape[2:])
+    flat = _flat(batch_shape)
+    zr = rn.to_rns_mont(rns, z[0].reshape(ctx.L, flat))
+    zi = rn.to_rns_mont(rns, z[1].reshape(ctx.L, flat))
+    ar, ai = rns.one_rns.expand_as(zr.v), torch.zeros_like(zr.v)
+    bits2 = torch.as_tensor(bits).to(zr.v.device).reshape(-1, flat) \
+        .to(torch.bool)
+    for b in bits2:
+        sq = _fp2_sqr(rns, (RVal(ar, 9), RVal(ai, 9)))
+        mu = _fp2_mul(rns, sq, (zr, zi))
+        assert mu[0].bound <= 9 and mu[1].bound <= 9
+        ar = torch.where(b[None], mu[0].v, sq[0].v)
+        ai = torch.where(b[None], mu[1].v, sq[1].v)
+    shape = (ctx.L,) + batch_shape
+    return torch.stack([rn.from_rns_mont(rns, RVal(ar, 9)).reshape(shape),
+                        rn.from_rns_mont(rns, RVal(ai, 9)).reshape(shape)],
+                       dim=0)
 
 
 def fp2_pow_rns(ctx: MontCtx, rns: RNSCtx, z, digits, unitary=False,
@@ -284,9 +455,7 @@ def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
     # numpy's broadcast: torch.broadcast_shapes imports sympy on first use
     batch_shape = np.broadcast_shapes(tuple(a.x.shape[1:]),
                                       tuple(b.x.shape[1:]))
-    flat = 1
-    for s in batch_shape:
-        flat *= s
+    flat = _flat(batch_shape)
 
     def prep(x):
         return rn.to_rns_mont(

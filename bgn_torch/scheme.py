@@ -1,20 +1,25 @@
-"""The BGN scheme on PyTorch: keygen, Encrypt, Mult, DecryptL2.
+"""The BGN scheme on PyTorch: keygen, Encrypt, Mult, Decrypt and the
+level-1 homomorphic ops.
 
-The port's counterpart of `bgn_tpu/scheme.py`, first slice: the main
-path keygen (host) -> encrypt_with_randomness -> mult -> decrypt of a
-level-2 ciphertext, all in the RNS domain on the card.  Layouts match the
-JAX package: an L1 ciphertext is AffinePoint(x [L, *B], y [L, *B],
-inf [*B]) of canonical 16-bit Montgomery limbs (int64 here), an L2
-ciphertext is [2, L, *B].
+The port's counterpart of `bgn_tpu/scheme.py`, all in the RNS domain on
+the card: keygen (host) -> encrypt_with_randomness -> mult -> decrypt of
+a level-2 ciphertext, and the level-1 path encrypt_deterministic /
+encrypt_zero -> add / sub / neg / mult_const -> decrypt of a level-1
+ciphertext, plus mult_const of a level-2 ciphertext and make_l2.  Layouts
+match the JAX package: an L1 ciphertext is AffinePoint(x [L, *B],
+y [L, *B], inf [*B]) of canonical 16-bit Montgomery limbs (int64 here), an
+L2 ciphertext is [2, L, *B].
 
 Entry points take `device=` and default to "cuda"; tests pass
 device="cpu", where the kernel wrappers run their plain PyTorch versions.
 Randomness comes from a `random.Random` the caller passes, as in the JAX
 package, so a seeded keygen gives the same key in both packages.
 
-Not in this slice (ROADMAP queue 1): decrypting an L1 ciphertext,
-deterministic Encrypt, Add/Sub/MultConst, re-randomization of
-non-deterministic keys, and the encoding tables.
+Not in this slice (ROADMAP queue 1, slice 3: the limb-domain CIOS
+product): Add/Sub of L2 ciphertexts, re-randomization of
+non-deterministic keys, MultConst of L1 ciphertexts by exponents wider
+than key_bits//2 - 2 bits, encrypt_device, and the encoding tables.  Each
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from .fieldcore.montgomery import MontCtx
 from .fieldcore.rns import RNSCtx
 from .ops import bsgs as bsgs_mod
 from .ops import cuda_rns
+from .ops import curve
+from .ops import fp2
 from .ops import pairing as pairing_mod
 from .ops import rns_pairing
 from .ops.curve import AffinePoint
@@ -44,8 +51,7 @@ from .utils import convert
 _L_MARGIN_BITS = 32
 _WINDOW_BITS = 8
 _WINDOW_RADIX = 1 << _WINDOW_BITS
-_L1_DECRYPT_TODO = ("decrypting a level-1 ciphertext (ladder_loop kernel) "
-                    "is not ported yet: ROADMAP.md queue 1, slice 2")
+_SLICE3 = "is not ported yet (limb CIOS product): ROADMAP.md queue 1, slice 3"
 
 
 # ---------------------------------------------------------------------------
@@ -131,16 +137,97 @@ class BGNPublicKey:
         pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
         return Ciphertext(pt, level2=False)[:B]
 
+    def encrypt_deterministic(self, ms) -> "Ciphertext":
+        """C = P^m (EncryptDeterministic, bgn.go:325-331); the batch is
+        padded to a power of two (min 8) as in encrypt_with_randomness."""
+        ms = _to_list(ms)
+        B = len(ms)
+        m_digits, m_neg = _signed_digits(ms + [0] * (_bucket(B) - B), self.n)
+        return Ciphertext(_encrypt_det_kernel(self.dev, m_digits, m_neg),
+                          level2=False)[:B]
+
+    def encrypt_zero(self, batch: int = 1) -> "Ciphertext":
+        """E_det(0) = O (encryptZero, bgn.go:562-564)."""
+        return self.encrypt_deterministic([0] * batch)
+
+    def add(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
+        """Homomorphic addition with level promotion (Add, bgn.go:442);
+        level 1 only in this slice.  rng: re-randomization, which a
+        deterministic key skips."""
+        self._check_deterministic("re-randomizing Add")
+        a, b = self._promote(a, b)
+        if a.level2:
+            raise NotImplementedError("Add of level-2 ciphertexts " + _SLICE3)
+        return Ciphertext(_add_l1_kernel(self.dev, a.data, b.data),
+                          level2=False)
+
+    def sub(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
+        """Homomorphic subtraction (Sub, bgn.go:375-433; the bgn.go:411
+        level-flag bug is not replicated); level 1 only in this slice."""
+        self._check_deterministic("re-randomizing Sub")
+        a, b = self._promote(a, b)
+        if a.level2:
+            raise NotImplementedError("Sub of level-2 ciphertexts " + _SLICE3)
+        return Ciphertext(_sub_l1_kernel(self.dev, a.data, b.data),
+                          level2=False)
+
+    def neg(self, a: "Ciphertext", rng=None) -> "Ciphertext":
+        """Additive inverse: Sub(E_det(0), c) (Neg, bgn.go:436-439)."""
+        zero = self.encrypt_zero(batch=_flat(a.batch_shape)) \
+            .reshape(a.batch_shape)
+        return self.sub(zero, a, rng=rng)
+
     def mult(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
         """Ciphertext-ciphertext multiply via the pairing (Mult,
         bgn.go:294): two L1 inputs, one L2 result."""
         if a.level2 or b.level2:
             raise ValueError("Mult requires two level-1 ciphertexts")
+        self._check_deterministic("re-randomizing Mult")
+        return Ciphertext(_mult_kernel(self.dev, a.data, b.data), level2=True)
+
+    def mult_const(self, a: "Ciphertext", ks, rng=None) -> "Ciphertext":
+        """Multiply by plaintext constant(s): C^k (MultConst, bgn.go:253).
+
+        ks: a scalar or [batch] ints (negative allowed, via negation).
+        Per-element RNS ladders (rns_pairing.scalar_mul_vec_rns /
+        fp2_pow_vec_rns).  The G1 ladder's incomplete additions are safe
+        only while 2^nbits < min(q1, q2); an L1 exponent wider than
+        key_bits//2 - 2 bits (only |k| ~ n) needs the complete limb
+        ladder of slice 3."""
+        self._check_deterministic("re-randomizing MultConst")
+        ks = _const_list(ks, a.batch_shape)
+        k_bits, k_neg = _signed_bits(ks, self.n)
+        k_bits = k_bits.reshape((k_bits.shape[0],) + tuple(a.batch_shape))
+        k_neg = k_neg.reshape(tuple(a.batch_shape))
+        if a.level2:
+            out = _mult_const_l2_rns_kernel(self.dev, a.data, k_bits, k_neg)
+            return Ciphertext(out, level2=True)
+        if k_bits.shape[0] > self.key_bits // 2 - 2:
+            raise NotImplementedError(
+                f"MultConst of a level-1 ciphertext by a {k_bits.shape[0]}-"
+                "bit exponent (the complete limb ladder) " + _SLICE3)
+        out = _mult_const_l1_rns_kernel(self.dev, a.data, k_bits, k_neg)
+        return Ciphertext(out, level2=False)
+
+    def make_l2(self, a: "Ciphertext") -> "Ciphertext":
+        """Promote L1 -> L2 via e(C, P) (makeL2, bgn.go:316-321)."""
+        if a.level2:
+            return a
+        return Ciphertext(_make_l2_kernel(self.dev, a.data), level2=True)
+
+    def _promote(self, a: "Ciphertext", b: "Ciphertext"):
+        if a.level2 and not b.level2:
+            b = self.make_l2(b)
+        if b.level2 and not a.level2:
+            a = self.make_l2(a)
+        return a, b
+
+    def _check_deterministic(self, what: str) -> None:
+        """A non-deterministic key re-randomizes every op's result with
+        Q^r or e(Q, Q)^r, which needs the limb product of slice 3."""
         if not self.deterministic:
             raise NotImplementedError(
-                "L2 re-randomization of non-deterministic keys is not "
-                "ported yet: ROADMAP.md queue 1")
-        return Ciphertext(_mult_kernel(self.dev, a.data, b.data), level2=True)
+                f"{what} for a non-deterministic key " + _SLICE3)
 
     def setup_decryption(self, sk: "BGNSecretKey",
                          rng=None) -> bsgs_mod.DecryptTables:
@@ -182,9 +269,8 @@ class BGNSecretKey:
     def decrypt_with_status(self, ct: "Ciphertext", pk: BGNPublicKey,
                             tables: bsgs_mod.DecryptTables):
         """Returns (values int64 [batch], ok bool [batch])."""
-        if not ct.level2:
-            raise NotImplementedError(_L1_DECRYPT_TODO)
-        found, m = _decrypt_l2_kernel(pk.dev, tables, ct.data, self.q1_naf)
+        kern = _decrypt_l2_kernel if ct.level2 else _decrypt_l1_kernel
+        found, m = kern(pk.dev, tables, ct.data, self.q1_naf)
         return (np.atleast_1d(m.cpu().numpy()).astype(np.int64),
                 np.atleast_1d(found.cpu().numpy()).astype(bool))
 
@@ -202,6 +288,17 @@ class Ciphertext:
         if self.level2:
             return tuple(self.data.shape[2:])
         return tuple(self.data.inf.shape)
+
+    def reshape(self, batch_shape) -> "Ciphertext":
+        batch_shape = tuple(batch_shape)
+        if self.level2:
+            return Ciphertext(self.data.reshape(self.data.shape[:2]
+                                                + batch_shape), True)
+        L = self.data.x.shape[0]
+        return Ciphertext(AffinePoint(self.data.x.reshape((L,) + batch_shape),
+                                      self.data.y.reshape((L,) + batch_shape),
+                                      self.data.inf.reshape(batch_shape)),
+                          False)
 
     def __getitem__(self, idx) -> "Ciphertext":
         """Slice along the leading batch axis."""
@@ -324,6 +421,35 @@ def _signed_digits(values, n: int):
     return digits, neg
 
 
+def _signed_bits(values, n: int):
+    """Host ints -> (bits [nbits, B] int64 MSB-first of |v| mod n, neg
+    mask [B] int64); nbits follows _bits_width, as in the JAX package."""
+    values = [int(v) for v in values]
+    neg = np.asarray([1 if v < 0 else 0 for v in values], dtype=np.int64)
+    mags = [abs(v) % n for v in values]
+    nbits = min(_bits_width(mags), n.bit_length())
+    nbytes = -(-nbits // 8)
+    buf = b"".join(v.to_bytes(nbytes, "big") for v in mags)
+    arr = np.unpackbits(np.frombuffer(buf, dtype=np.uint8)
+                        .reshape(len(mags), nbytes), axis=1)
+    return arr[:, 8 * nbytes - nbits:].T.astype(np.int64), neg
+
+
+def _const_list(ks, batch_shape) -> list:
+    """A scalar or one constant per element of the batch, as a list."""
+    arr = np.asarray(ks, dtype=object).reshape(-1)
+    B = _flat(batch_shape)
+    if arr.size == 1:
+        arr = np.repeat(arr, B)
+    if arr.size != B:
+        raise ValueError("constant batch mismatch")
+    return list(arr)
+
+
+def _flat(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64))
+
+
 def _rand_below(n: int, rng=None) -> int:
     """Uniform random int < n (newCryptoRandom, bgn.go:567-574)."""
     if rng is None:
@@ -415,6 +541,46 @@ def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
     return rns_pairing.normalize_rns(dev.ctx, dev.rns, X, Y, Z)
 
 
+def _encrypt_det_kernel(dev: PublicDeviceKey, m_digits, m_neg):
+    """P^|m| from P's window table (window_ladder_tab kernel), Y negated
+    where m < 0, then the RNS normalize."""
+    X, Y, Z = rns_pairing.fixed_base_mul_rns(dev.ctx, dev.rns, dev.p_win,
+                                             m_digits, raw=True)
+    Yn = rns_pairing.neg_y_rns(dev.rns, Y.v, Y.bound, m_neg)
+    return rns_pairing.normalize_rns(dev.ctx, dev.rns, X.v, Yn, Z.v)
+
+
+def _add_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
+    return rns_pairing.add_complete_rns(dev.ctx, dev.rns, a, b)
+
+
+def _sub_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
+    return rns_pairing.add_complete_rns(dev.ctx, dev.rns, a,
+                                        curve.neg_affine(dev.ctx, b))
+
+
+def _make_l2_kernel(dev: PublicDeviceKey, a: AffinePoint):
+    return pairing_mod.pairing(dev.ctx, a, dev.P, dev.n_naf, dev.l_bits,
+                               rns=dev.rns)
+
+
+def _mult_const_l1_rns_kernel(dev: PublicDeviceKey, a: AffinePoint, k_bits,
+                              k_neg):
+    """Per-element RNS double-and-add; negation and the normalize stay in
+    RNS."""
+    X, Y, Z = rns_pairing.scalar_mul_vec_rns(dev.ctx, dev.rns, a, k_bits)
+    Yn = rns_pairing.neg_y_rns(dev.rns, Y.v, Y.bound, k_neg.reshape(-1))
+    aff = rns_pairing.normalize_rns(dev.ctx, dev.rns, X.v, Yn, Z.v)
+    return AffinePoint(aff.x.reshape(a.x.shape), aff.y.reshape(a.y.shape),
+                       aff.inf.reshape(a.inf.shape))
+
+
+def _mult_const_l2_rns_kernel(dev: PublicDeviceKey, a, k_bits, k_neg):
+    r = rns_pairing.fp2_pow_vec_rns(dev.ctx, dev.rns, a, k_bits)
+    mask = torch.as_tensor(k_neg, device=r.device)
+    return fp2.select(mask, fp2.conj(dev.ctx, r), r)
+
+
 def _mult_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
     return pairing_mod.pairing(dev.ctx, a, b, dev.n_naf, dev.l_bits,
                                rns=dev.rns)
@@ -429,4 +595,14 @@ def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, z, q1_naf):
     zr, zi = rns_pairing.fp2_pow_rns(dev.ctx, dev.rns, zf, q1_naf,
                                      unitary=True, raw=True)
     found, m = bsgs_mod.bsgs_gt_rns(dev.ctx, dev.rns, tables, zr, zi)
+    return found.reshape(batch_shape), m.reshape(batch_shape)
+
+
+def _decrypt_l1_kernel(dev: PublicDeviceKey, tables, pt: AffinePoint, q1_naf):
+    """csk = C^q1 (ladder_loop kernel), then the RNS giant-step scan and
+    digest lookup; only the final affine candidates leave RNS."""
+    batch_shape = tuple(pt.inf.shape)
+    Xr, Yr, Zr = rns_pairing.scalar_mul_rns(dev.ctx, dev.rns, pt, q1_naf)
+    found, m = bsgs_mod.bsgs_g1_rns(dev.ctx, dev.rns, tables, Xr, Yr, Zr,
+                                    pt.inf.reshape(-1))
     return found.reshape(batch_shape), m.reshape(batch_shape)

@@ -72,6 +72,7 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
                                   for j in range(2)])))
     dig = torch.tensor([[1, 0, 3], [2, 2, 0]])
     mneg = torch.tensor([0, 1, 0])
+    gx, gy = cuda_rns._gather_rows(tab, dig)
     calls = [
         (cuda_rns.miller_loop, cuda_rns.miller_loop_plain,
          (ctx, x, y, y, x, naf)),
@@ -80,7 +81,14 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
          (ctx, x, y, naf)),
         (cuda_rns.dual_ladder, cuda_rns.dual_ladder_plain,
          (ctx, tab, tab, 1, dig, mneg)),
+        (cuda_rns.ladder_loop, cuda_rns.ladder_loop_plain,
+         (ctx, x, y, x, y, x, naf)),
+        (cuda_rns.window_ladder_tab, cuda_rns.window_ladder_tab_plain,
+         (ctx, tab, dig)),
+        (cuda_rns.window_ladder, cuda_rns.window_ladder_plain,
+         (ctx, gx, gy, dig == 0)),
     ]
+    assert len(cuda_rns.WRAPPERS) == 7
     assert set(cuda_rns.WRAPPERS) == {c[0] for c in calls}
     for wrapper, plain, args in calls:
         assert isinstance(wrapper.launches, int)
@@ -96,8 +104,12 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
 
 def _emulated_kernel_r_mul(ctx, x, y):
     """csrc/rns.cuh r_mul, line for line, over the kernels' constant blob
-    (numpy, all lanes at once)."""
+    (numpy, all lanes at once): the narrow alpha (k <= 64) from the int
+    weights, the wide one as a float64 sum against the fp32 reciprocals,
+    and the bias KC = _kc(k)."""
     k = ctx.k
+    wide = k > trn._K_NARROW
+    KC = trn._kc(k)
     off = cuda_rns.blob_layout(k)
     blob = cuda_rns.const_blob(ctx).numpy()
     f = blob.view(np.float32)
@@ -122,9 +134,15 @@ def _emulated_kernel_r_mul(ctx, x, y):
     d = red((x * y).astype(np.float32), m, recip)
     qh = red((d[:k] * fld("qc_a", k)).astype(np.float32), m[:k], recip[:k])
     qh = qh.astype(np.int64)
-    a1 = np.floor((ints("w1a", k)[:, None] * qh).sum(0) / 524288.0 - 0.4)
+
+    def alpha(digits, w, rec, eps):
+        if wide:
+            return np.floor((digits * rec.astype(np.float64)).sum(0) + eps)
+        return np.floor((w[:, None] * digits).sum(0) / 524288.0 + eps)
+
+    a1 = alpha(qh, ints("w1a", k), recip[:k], -0.4)
     mB = m[k:].astype(np.int64)
-    T = mat1 @ qh + 128 * mB - a1.astype(np.int64) * \
+    T = mat1 @ qh + KC * mB - a1.astype(np.int64) * \
         fld("p_mod_b", k).astype(np.int64)
     qpa = (T % mB).astype(np.float32)
     u = red((d[k:] * fld("ainv_b", k)).astype(np.float32), m[k:],
@@ -132,20 +150,23 @@ def _emulated_kernel_r_mul(ctx, x, y):
     r = np.where(u >= m[k:], u - m[k:], u)
     rh = red((r * fld("crt_inv_b", k)).astype(np.float32), m[k:],
              recip[k:]).astype(np.int64)
-    a2 = np.floor((ints("w2a", k)[:, None] * rh).sum(0) / 524288.0 + 0.5)
+    a2 = alpha(rh, ints("w2a", k), recip[k:], 0.5)
     mA = m[:k].astype(np.int64)
-    T2 = mat2 @ rh + 128 * mA - a2.astype(np.int64) * \
+    assert int((mat2 @ rh).max()) + KC * 4093 < 2 ** 31      # int32 range
+    T2 = mat2 @ rh + KC * mA - a2.astype(np.int64) * \
         fld("b_mod_a", k).astype(np.int64)
     return np.concatenate([(T2 % mA).astype(np.float32), r], axis=0)
 
 
-@pytest.mark.parametrize("bits", [80, 515])
+@pytest.mark.parametrize("bits", [80, 515, 800, 1036])
 def test_kernel_integer_extension_matches_plain_r_mul(bits):
     """The kernels compute each base extension as an exact int32 dot
     product and an integer mod; that is the canonical residue of the same
     integer the plain version reduces, so raw residues agree bit for bit
-    (p of 80 bits, and of 515 bits: k = 45, the 512-bit key's layout)."""
+    (p of 80 bits; 515 bits: k = 45, the 512-bit key's layout; 800 and
+    1036 bits: the wide path, k = 69 and k = 90, the 1024-bit key's)."""
     ctx = _small_ctx(bits)
+    assert cuda_rns.slots_for(ctx.k) == (4 if ctx.k <= 64 else 6)
     x, y = _residues(ctx, 64, 7), _residues(ctx, 64, 8)
     got = _emulated_kernel_r_mul(ctx, x, y)
     want = trn.r_mul(ctx, trn.RVal(x, 3), trn.RVal(y, 3)).v.numpy()

@@ -116,8 +116,7 @@ def test_encrypt_mult_decrypt_match_jax(port_key, shared_keypair):
     assert list(jsk.decrypt(jprod, jpk, jtables)) == want
     assert [hm.golden_decrypt_l2(gk, z) for z in
             tconvert.fp2_to_host(pk.dev.ctx, prod.data)] == want
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        sk.decrypt(a, pk, tables)
+    assert list(sk.decrypt(a, pk, tables)) == ms        # level 1
 
 
 def test_512bit_round_trip_against_hostmath():
