@@ -5,6 +5,8 @@ sm_90a (one nvcc per source, all started together), links them into one
 shared library with a plain C interface, and loads it with ctypes.  The
 library lives in `build/kernels/` at the root of the checkout and is
 rebuilt when a source is newer than it.  Nothing here runs at import.
+`launch` calls an entry on the current stream for the wrappers of
+ops/cuda_rns.py and fieldcore/cuda_mont.py.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c <src>.cu
@@ -26,9 +28,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 LIB_NAME = "libbgn_rns.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry -> argument types: (blob, k, slots, ...), the stream last
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry -> argument types, the stream last; the RNS kernels take
+# (blob, k, slots, ...) first
 _SIGNATURES = {
+    "bgn_mont_mul": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _P, _I, _P],
     "bgn_miller_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
     "bgn_pow_loop": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_loop": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
@@ -119,3 +123,29 @@ def library() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return library().bgn_error_string(err).decode()
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's data pointer as a C pointer argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def launch(entry: str, *args) -> None:
+    """Call a C entry of the kernel library on the current stream; raise
+    on a nonzero cudaGetLastError()."""
+    import torch
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    err = getattr(library(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry}: CUDA error {err} "
+                           f"({error_string(err)})")
+
+
+def is_cpu(t) -> bool:
+    """True for a CPU tensor (a wrapper then runs its plain version), False
+    for a CUDA tensor; any other device raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False

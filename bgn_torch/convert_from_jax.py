@@ -5,9 +5,11 @@ caller extracts them with `np.asarray`) plus host ints, and builds the
 port's objects on `device`.  Nothing here imports JAX: the arrays are
 plain numpy (bf16 arrays are read through `astype(float32)`).
 
-Layout changes: limbs become int64; the window residues go from the JAX
-[2k, J, R] layout to the port's [J, R, 2k]; the bf16 extension matrices
-w1, w2 become float32 (their values are bf16-exact).
+Layout changes: limbs become int64 (the MontCtx's pinv a host int); the
+window residues go from the JAX [2k, J, R] layout to the port's
+[J, R, 2k]; the bf16 extension matrices w1, w2 become float32 (their
+values are bf16-exact).  The limb window table of Q (the JAX key's q_win)
+becomes the port's q_tab.
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ def _ints(a) -> np.ndarray:
     return np.asarray(a).astype(np.int64)
 
 
-def mont_ctx(p_limbs, one, pm2_bits, p_host: int, device="cuda") -> MontCtx:
-    """MontCtx from the JAX MontCtx's p, one, pm2_bits and p_host."""
-    return MontCtx(_ints(p_limbs), _ints(one), _ints(pm2_bits),
+def mont_ctx(p_limbs, pinv, r2, one, pm2_bits, pp1d4_bits, p_host: int,
+             device="cuda") -> MontCtx:
+    """MontCtx from the JAX MontCtx's fields (pinv a uint32 scalar)."""
+    return MontCtx(_ints(p_limbs), int(np.asarray(pinv)), _ints(r2),
+                   _ints(one), _ints(pm2_bits), _ints(pp1d4_bits),
                    int(p_host)).to(device)
 
 
@@ -48,9 +52,10 @@ def affine_point(x, y, inf, device="cuda") -> AffinePoint:
                          for a in (x, y, inf)))
 
 
-def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_naf, l_bits,
-               p_win_rns, q_win_rns, device="cuda") -> PublicDeviceKey:
-    """PublicDeviceKey from the JAX key: P, Q as (x, y, inf) arrays;
+def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_naf, l_bits, pair_qq,
+               p_win_rns, q_win_rns, q_win, device="cuda") -> PublicDeviceKey:
+    """PublicDeviceKey from the JAX key: P, Q and the limb window table
+    q_win ([L, J, R]) as (x, y, inf) arrays; pair_qq as [2, L] limbs;
     p_win_rns, q_win_rns as (rx, ry) residues [2k, J, R]."""
     def win(t):
         return tuple(np.ascontiguousarray(
@@ -59,8 +64,9 @@ def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_naf, l_bits,
     return PublicDeviceKey(
         ctx=ctx, rns=rns,
         P=affine_point(*P, device=device), Q=affine_point(*Q, device=device),
-        n_naf=_ints(n_naf), l_bits=_ints(l_bits),
-        p_win=win(p_win_rns), q_win=win(q_win_rns)).to(device)
+        n_naf=_ints(n_naf), l_bits=_ints(l_bits), pair_qq=_ints(pair_qq),
+        p_win=win(p_win_rns), q_win=win(q_win_rns),
+        q_tab=affine_point(*q_win, device=device)).to(device)
 
 
 def public_key(key_bits: int, n: int, l: int, p: int, msg_space: int,

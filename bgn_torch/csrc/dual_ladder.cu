@@ -29,7 +29,7 @@ bgn_dual_ladder_kernel(const float* blob, int k, const float* ptx,
                        int R, int Jm, int Jt, const int* digits,
                        const int* mneg, float* ox, float* oy, float* oz,
                        int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> X1, Y1, Z1, X2, Y2, Z2;

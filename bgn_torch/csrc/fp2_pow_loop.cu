@@ -15,7 +15,7 @@ __global__ void __launch_bounds__(BGN_THREADS)
 bgn_fp2_pow_loop_kernel(const float* blob, int k, const float* xr,
                         const float* xi, const int* digits, int nd,
                         float* owr, float* owi, int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> XR, XI, NXI, AR, AI;

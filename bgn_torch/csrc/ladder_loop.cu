@@ -23,7 +23,7 @@ bgn_ladder_loop_kernel(const float* blob, int k, const float* x,
                        const float* y, const float* z, const float* ax,
                        const float* ay, const int* digits, int nd, float* ox,
                        float* oy, float* oz, int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> AX, AY, NAY, X, Y, Z;

@@ -21,7 +21,7 @@ bgn_miller_loop_kernel(const float* blob, int k, const float* ax,
                        const float* ay, const float* xb, const float* yb,
                        const int* digits, int nd, float* ofr, float* ofi,
                        int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> AX, AY, NAY, XB, YB, X, Y, Z, FR, FI;

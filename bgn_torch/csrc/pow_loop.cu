@@ -16,7 +16,7 @@ template <int S>
 __global__ void __launch_bounds__(BGN_THREADS)
 bgn_pow_loop_kernel(const float* blob, int k, const float* x,
                     const int* bits, int nb, float* out, int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> X, ACC;

@@ -8,53 +8,71 @@
 // 0..k-1, base B = channels k..2k-1).  One warp owns one lane (one batch
 // element): thread l of the warp holds channel c = 32*s + l in slot s of
 // an S-entry register array (Fe<S>), so 2k <= 32*S.  Every kernel is
-// instantiated twice: S = 4 for k <= 64 (keys to ~700 bits) and S = 6 for
-// k <= 96 (1024-bit keys, k = 90); the wrapper picks S from k
-// (ops/cuda_rns.py slots_for).  Which base a slot holds follows from
-// ch < k, so base A may end inside a slot (at k = 90, slot 2 holds base-A
-// channels 64..89 and base-B channels 90..95).  Every index into an Fe is
+// instantiated three times: S = 4 for k <= 64 (keys to ~700 bits), S = 6
+// for k <= 96 (1024-bit keys, k = 90) and S = 12 for 96 < k <= 192
+// (2048-bit keys, k = 185); the wrapper picks S from k (ops/cuda_rns.py
+// slots_for).  Which base a slot holds follows from ch < k, so base A may
+// end inside a slot (at k = 90, slot 2 holds base-A channels 64..89 and
+// base-B channels 90..95).  Every index into an Fe is
 // a compile-time constant and every helper is inlined (r_mul is one
 // out-of-line copy per S taking and returning Fe by value), so a lane's
 // whole loop state stays in registers: no local memory, no cache misses
 // on the dependent chain.  Channelwise work is one slot op per thread;
 // the two base extensions of an r_mul broadcast each source residue to
 // the warp with a shuffle, and each thread accumulates the destination
-// channels it owns against the extension matrix in shared memory (rows
+// channels it owns against the extension matrix.  Up to k = 96 the whole
+// constant blob sits in shared memory (matrix rows per destination,
 // padded to a stride of 1 mod 32, so the warp's reads hit distinct
-// banks).  Branches depend only on a lane's digits, so a warp never
-// diverges.
+// banks).  Above k = 96 the two k x k matrices (286 KB at k = 185) do not
+// fit the 227 KB a block may use: they stay in device memory (L2-resident,
+// read through __ldg), stored one row per SOURCE channel indexed by
+// destination channel and padded to 32 words, so the warp's read of one
+// source against its 32 destinations is one aligned 128-byte line; the
+// small vectors and kp (58 KB at k = 185) stay in shared memory.
+// Branches depend only on a lane's digits, so a warp never diverges.
 //
 // Exactness: every float value is an integer below 2^24, so float
 // products and sums are exact, and contraction into FMAs changes nothing.
-// The base extensions are exact int32 dot products against the unsplit
+// The base extensions are exact dot products against the unsplit
 // extension matrices plus the bias KC*m (fieldcore/rns.py _kc): with
-// residues and matrix entries <= 4092 the sum is below
-// k * 4092^2 + KC * 4093, which is < 2^31 for every k <= 128 (at k = 128,
-// KC = 256: 2.1444e9 < 2.1475e9).  The alpha estimate:
+// residues and matrix entries <= 4092 the sum, less alpha times a residue
+// (alpha >= -1), lies in [0, k * 4092^2 + (KC + 1) * 4093).  Up to S = 6
+// it is summed in int32, which holds it for every k <= 128 (at k = 128,
+// KC = 256: 2.1444e9 < 2.1475e9); at S = 12 in unsigned 32-bit integers,
+// which hold it for every k <= 256 (at k = 192, KC = 256: 3.216e9; at
+// k = 256, KC = 512: 4.2887e9 < 4.2950e9), the subtraction of alpha times
+// a residue wrapping mod 2^32, exact because the true value lies in that
+// range.
+// The alpha estimate:
 //  - narrow path (k <= 64): an exact int32 sum of 8-bit weights
 //    round(2^19/m) times residues (< 64 * 256 * 4096 = 2^26), a warp
 //    reduction, scaled in double;
 //  - wide path (k > 64): floor(sum_i q_i * recip_i + eps) in double, as
 //    fieldcore/rns.py _alpha_sum.  Each product of a 12-bit integer and
 //    an fp32 reciprocal (~2^-12, 24-bit mantissa) is a multiple of 2^-35
-//    below 4, and the sum stays below 2^9, so the double sum is exact in
-//    any order: the warp reduction gives the plain version's value.
+//    below 4, and the sum stays below 192 * 4 < 2^10, so the double sum
+//    (45 significant bits at most) is exact in any order: the warp
+//    reduction gives the plain version's value.
 // The result of each step is the canonical residue of the same integer
 // that the plain PyTorch version (fieldcore/rns.py) reduces, so the two
-// agree bit for bit.  Above k = 96 there is no instantiation; at 2048
-// bits (k = 185) the constants (336 KB) would exceed shared memory.
+// agree bit for bit.  Above k = 192 there is no instantiation.
 //
 // What bounds it on the H100: instruction issue.  One r_mul is ~2k
 // shuffles and ~2k (shared load + integer multiply-add) pairs per thread
 // of the warp, where a tensor-core product would issue a few dozen
 // instructions; the out-of-line r_mul adds a call per product.  It does
-// not use the tensor cores (a later step).
+// not use the tensor cores (a later step).  At S = 12 the matrix reads
+// come from L1/L2 instead of shared memory, and the larger Fe<12> state
+// raises register pressure (ptxas may spill; chip_smoke.py prints it).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define BGN_KNARROW 64                 // narrow alpha path: k <= 64
+#define BGN_KSMEM 96                   // k above: matrices in device memory
 #define BGN_KPCOLS 33                  // kp columns: (K*p) mod m, K <= 32
 #define BGN_LANES 4                    // lanes (warps) per block
 #define BGN_THREADS (32 * BGN_LANES)
@@ -68,31 +86,41 @@ struct Fe {
   float v[S];
 };
 
-// The block's copy of the constant blob (dynamic shared memory).
+// The block's copy of the constant blob (dynamic shared memory), and the
+// blob itself in device memory (read for the matrices at S = 12).
 extern __shared__ float bgn_smem[];
+static __shared__ const int* bgn_gblob;
 
 // Shape of the constants and this thread's place in its warp; the other
 // fields are word offsets into bgn_smem (so every access is a shared-
-// memory load, also inside the out-of-line r_mul).
+// memory load, also inside the out-of-line r_mul) or, for the matrices
+// above k = BGN_KSMEM, into the device-memory blob.
 struct RnsConsts {
   int k, ch, rs, lid;          // rs: matrix row stride; lid: thread in warp
   int m, recip, one, kp, qc_a, p_mod_b, ainv_b, crt_inv_b, b_mod_a;
   int w1a, w2a, mat1, mat2;    // int entries: [k], [k], [k][rs], [k][rs]
+  int smem;                    // words of the blob copied to shared memory
 };
 
 #define BGN_F(o) (bgn_smem[o])
 #define BGN_I(o) (reinterpret_cast<const int*>(bgn_smem)[o])
 
-// Row stride of the extension matrices: >= k and == 1 (mod 32), so the
-// warp's reads of 32 consecutive rows hit distinct banks.  Mirrors
-// cuda_rns.blob_layout.
-static __host__ __device__ inline int bgn_row_stride(int k) {
+// Row stride of the extension matrices.  In shared memory (gmem false,
+// k <= BGN_KSMEM): rows per destination, >= k and == 1 (mod 32), so the
+// warp's reads of 32 consecutive rows hit distinct banks.  In device
+// memory (gmem true, S = 12): rows per source, indexed by destination
+// channel, 2k rounded up to 32.  Mirrors cuda_rns.blob_layout.
+static __host__ __device__ inline int bgn_row_stride(int k, bool gmem) {
+  if (gmem) return (2 * k + 31) / 32 * 32;
   return k <= 1 ? 1 : ((k - 2) / 32 + 1) * 32 + 1;
 }
 
-// Word offsets of the constant blob; mirrors cuda_rns.blob_layout.
-static __host__ __device__ inline int bgn_layout(int k, RnsConsts* c) {
-  int ch = 2 * k, rs = bgn_row_stride(k), o = 0;
+// Word offsets of the constant blob; mirrors cuda_rns.blob_layout.  gmem
+// is k > BGN_KSMEM, given by the callers at compile time as S > 6 where
+// they can.
+static __host__ __device__ inline int bgn_layout(int k, RnsConsts* c,
+                                                 bool gmem) {
+  int ch = 2 * k, rs = bgn_row_stride(k, gmem), o = 0;
   c->k = k;
   c->ch = ch;
   c->rs = rs;
@@ -107,14 +135,23 @@ static __host__ __device__ inline int bgn_layout(int k, RnsConsts* c) {
   c->b_mod_a = o; o += k;
   c->w1a = o; o += k;
   c->w2a = o; o += k;
+  if (gmem) {                  // 128-byte aligned rows in device memory
+    c->smem = o;
+    o = (o + 31) / 32 * 32;
+    c->mat1 = o; o += k * rs;  // [i][ch]: src base-A channel i, dst ch >= k
+    c->mat2 = o; o += k * rs;  // [j][ch]: src base-B channel j, dst ch < k
+    return o;
+  }
   c->mat1 = o; o += k * rs;    // [j][i]: dst base-B channel j, src i
   c->mat2 = o; o += k * rs;    // [i][j]: dst base-A channel i, src j
+  c->smem = o;
   return o;
 }
 
 static inline size_t bgn_smem_bytes(int k) {
   RnsConsts c;
-  return sizeof(float) * bgn_layout(k, &c);
+  bgn_layout(k, &c, k > BGN_KSMEM);
+  return sizeof(float) * c.smem;
 }
 
 // The C = KC*m bias of the extensions: must exceed the largest alpha
@@ -126,15 +163,32 @@ static __host__ __device__ inline int bgn_kc(int k) {
   return 1 << (b > 7 ? b : 7);
 }
 
-// Copy the blob into shared memory (whole block) and lay it out.  Every
-// thread of the block calls it before any early return.
+// Copy the blob's shared part into shared memory (whole block) and lay it
+// out.  Every thread of the block calls it before any early return.
+template <int S>
 static __device__ inline RnsConsts bgn_load_consts(const float* blob, int k) {
   RnsConsts c;
-  const int words = bgn_layout(k, &c);
-  for (int w = threadIdx.x; w < words; w += blockDim.x) bgn_smem[w] = blob[w];
+  bgn_layout(k, &c, S > 6);
+  for (int w = threadIdx.x; w < c.smem; w += blockDim.x) bgn_smem[w] = blob[w];
+  if (threadIdx.x == 0) bgn_gblob = reinterpret_cast<const int*>(blob);
   __syncthreads();
   c.lid = threadIdx.x & 31;
   return c;
+}
+
+// Entry (destination channel ch, source channel src) of the extension
+// matrix at word offset mat, as an unsigned 32-bit value: from shared
+// memory (row dst_row = ch's row) for S <= 6, k <= BGN_KSMEM, or from the
+// device-memory rows per source for S = 12.
+template <int S>
+static __device__ __forceinline__ unsigned bgn_ext(const RnsConsts& c,
+                                                   const int* g, int mat,
+                                                   int dst_row, int ch,
+                                                   int src) {
+  if constexpr (S > 6)
+    return (unsigned)__ldg(g + mat + src * c.rs + ch);
+  else
+    return (unsigned)BGN_I(mat + dst_row * c.rs + src);
 }
 
 // The lane this thread's warp serves.
@@ -264,11 +318,14 @@ template <int S>
 static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
                                              const Fe<S> y) {
   constexpr int SA = S / 2;          // slots that may hold base A (k <= 16S)
+  const int* g = S > 6 ? bgn_gblob : nullptr;
   RnsConsts c;                       // offsets from k: registers, no memory
-  bgn_layout(k, &c);
+  bgn_layout(k, &c, S > 6);
   c.lid = threadIdx.x & 31;
   const bool wide = S > 4 && k > BGN_KNARROW;
-  const int KC = S > 4 ? bgn_kc(k) : 128;      // S = 4 implies k <= 64
+  // extension sums: int32 to k = 128, unsigned above (audit at the top)
+  using Acc = typename std::conditional<(S > 6), unsigned, int>::type;
+  const Acc KC = S > 4 ? bgn_kc(k) : 128;       // S = 4 implies k <= 64
   Fe<S> out = {};
   int qv[S];              // qhat (base A channels) and later rhat (base B)
   float dB[S];
@@ -293,7 +350,7 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
   // ext A -> B: q * p * A^-1 in base B (alpha biased down by 0.4)
   const int a1 = wide ? (int)floor(warp_sum(w1) - 0.4)
                       : bgn_alpha(warp_sum(s1), -0.4);
-  int acc[S];
+  Acc acc[S];
 #pragma unroll
   for (int s = 0; s < S; s++) acc[s] = 0;
 #pragma unroll
@@ -302,12 +359,12 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
     for (int l = 0; l < 32; l++) {
       const int i = 32 * sa + l;
       if (i >= k) break;
-      const int q = __shfl_sync(BGN_FULL, qv[sa], l);
+      const Acc q = __shfl_sync(BGN_FULL, qv[sa], l);
 #pragma unroll
       for (int s = 0; s < S; s++) {
         const int ch = BGN_CH(c, s);
         if (ch >= k && ch < c.ch)
-          acc[s] += q * BGN_I(c.mat1 + (ch - k) * c.rs + i);
+          acc[s] += q * (Acc)bgn_ext<S>(c, g, c.mat1, ch - k, ch, i);
       }
     }
   }
@@ -319,8 +376,8 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
     if (ch >= k && ch < c.ch) {
       const int j = ch - k;
       const float m = BGN_F(c.m + ch), r = BGN_F(c.recip + ch);
-      const int mi = (int)m;
-      const int T = acc[s] + KC * mi - a1 * (int)BGN_F(c.p_mod_b + j);
+      const Acc mi = (Acc)m;
+      const Acc T = acc[s] + KC * mi - (Acc)a1 * (Acc)BGN_F(c.p_mod_b + j);
       const float qpa = (float)(T % mi);
       const float v = bgn_red(__fmul_rn(dB[s], BGN_F(c.ainv_b + j)), m, r) + qpa;
       const float rr = v >= m ? v - m : v;
@@ -335,7 +392,7 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
   // ext B -> A: exact (alpha centred)
   const int a2 = wide ? (int)floor(warp_sum(w2) + 0.5)
                       : bgn_alpha(warp_sum(s2), 0.5);
-  int acc2[SA];
+  Acc acc2[SA];
 #pragma unroll
   for (int s = 0; s < SA; s++) acc2[s] = 0;
 #pragma unroll
@@ -345,13 +402,13 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
     for (int l = 0; l < 32; l++) {
       const int chb = 32 * sb + l;
       if (chb >= c.ch) break;
-      const int q = __shfl_sync(BGN_FULL, qv[sb], l);
+      const Acc q = __shfl_sync(BGN_FULL, qv[sb], l);
       if (chb < k) continue;
       const int j = chb - k;
 #pragma unroll
       for (int s = 0; s < SA; s++) {
         const int ch = BGN_CH(c, s);
-        if (ch < k) acc2[s] += q * BGN_I(c.mat2 + ch * c.rs + j);
+        if (ch < k) acc2[s] += q * (Acc)bgn_ext<S>(c, g, c.mat2, ch, ch, j);
       }
     }
   }
@@ -359,8 +416,8 @@ static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
   for (int s = 0; s < SA; s++) {
     const int ch = BGN_CH(c, s);
     if (ch < k) {
-      const int mi = (int)BGN_F(c.m + ch);
-      const int T = acc2[s] + KC * mi - a2 * (int)BGN_F(c.b_mod_a + ch);
+      const Acc mi = (Acc)BGN_F(c.m + ch);
+      const Acc T = acc2[s] + KC * mi - (Acc)a2 * (Acc)BGN_F(c.b_mod_a + ch);
       out.v[s] = (float)(T % mi);
     }
   }
@@ -701,10 +758,13 @@ static inline cudaError_t bgn_prepare(K kernel, int k, int n, dim3* grid,
   return err;
 }
 
-// Launch the instantiation for `slots` (4: k <= 64, 6: k <= 96) of a
-// template launcher fn<S>(args...); any other slot count, or k beyond it,
-// is refused before a launch.
+// Launch the instantiation for `slots` (4: k <= 64, 6: k <= 96, 12:
+// 96 < k <= 192, the device-memory matrices) of a template launcher
+// fn<S>(args...); any other slot count, or k outside it, is refused before
+// a launch.
 #define BGN_DISPATCH(slots, k, fn, ...)                                   \
   (((slots) == 4 && (k) <= 64)   ? fn<4>(__VA_ARGS__)                     \
-   : ((slots) == 6 && (k) <= 96) ? fn<6>(__VA_ARGS__)                     \
-                                 : (int)cudaErrorInvalidValue)
+   : ((slots) == 6 && (k) <= BGN_KSMEM) ? fn<6>(__VA_ARGS__)              \
+   : ((slots) == 12 && (k) > BGN_KSMEM && (k) <= 192)                     \
+       ? fn<12>(__VA_ARGS__)                                              \
+       : (int)cudaErrorInvalidValue)

@@ -23,7 +23,7 @@ __global__ void __launch_bounds__(BGN_THREADS)
 bgn_window_ladder_kernel(const float* blob, int k, const float* gx,
                          const float* gy, const int* ginf, int Jd, float* ox,
                          float* oy, float* oz, int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> X, Y, Z;

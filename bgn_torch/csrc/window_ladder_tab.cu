@@ -24,7 +24,7 @@ bgn_window_ladder_tab_kernel(const float* blob, int k, const float* tx,
                              const float* ty, int R, int Jd,
                              const int* digits, float* ox, float* oy,
                              float* oz, int n) {
-  const RnsConsts c = bgn_load_consts(blob, k);
+  const RnsConsts c = bgn_load_consts<S>(blob, k);
   const int lane = bgn_lane();
   if (lane >= n) return;
   Fe<S> X, Y, Z;

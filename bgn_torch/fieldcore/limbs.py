@@ -99,29 +99,56 @@ def int_to_naf(x: int, width: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def _carry_pass(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One carry pass: (t & mask) + (t >> 16) shifted up a limb, and the
+    high part pushed out of the top limb."""
+    hi = t >> LIMB_BITS
+    out = t & LIMB_MASK
+    out[1:] += hi[:-1]
+    return out, hi[-1]
+
+
+def normalize(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lazy limbs (each < 2^32) -> (canonical 16-bit limbs, overflow) with
+    value = limbs + overflow * 2^(16L), as bgn_tpu/fieldcore/limbs.py
+    normalize: two carry passes bring every entry to <= 2^16, then the
+    remaining binary carries resolve by carry lookahead.  Limb j generates
+    a carry (t == 2^16), propagates one (t == 2^16 - 1) or stops it; the
+    carry out of limbs [0, j] is the generate bit of the highest
+    non-propagating limb at or below j.  The JAX package combines the
+    (generate, propagate) pairs with an associative scan; here the same
+    scan is one cumulative max over the limb axis of the codes 2j + 2 + g
+    (0 for a propagating limb), whose low bit is that generate bit: one
+    launch on the card in place of log2(L) combine steps."""
+    t, spill1 = _carry_pass(t)
+    t, spill2 = _carry_pass(t)
+    L = t.shape[0]
+    pos = torch.arange(2, 2 * L + 2, 2, device=t.device)
+    pos = pos.reshape((L,) + (1,) * (t.dim() - 1))
+    code = torch.where(t == LIMB_MASK, 0, pos + (t >> LIMB_BITS))
+    G = torch.cummax(code, dim=0).values & 1    # carry out of limbs [0, j]
+    t[1:] += G[:-1]
+    return t & LIMB_MASK, spill1 + spill2 + G[-1]
+
+
 def add(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """a + b -> (limbs mod 2^(16L), carry in {0,1}): a sequential ripple."""
-    out = torch.empty_like(a)
-    carry = torch.zeros_like(a[0])
-    for i in range(a.shape[0]):
-        t = a[i] + b[i] + carry
-        carry = t >> LIMB_BITS
-        out[i] = t & LIMB_MASK
-    return out, carry
+    """a + b -> (limbs mod 2^(16L), carry in {0,1})."""
+    return normalize(a + b)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """a - b (two's complement) -> (limbs mod 2^(16L), borrow in {0,1}).
 
-    borrow == 1 iff a < b.  A sequential ripple over the L limbs: int64
-    holds every intermediate, and L is small."""
-    out = torch.empty_like(a)
-    borrow = torch.zeros_like(a[0])
-    for i in range(a.shape[0]):
-        t = a[i] - b[i] - borrow
-        borrow = (t < 0).to(a.dtype)
-        out[i] = t + borrow * (1 << LIMB_BITS)
-    return out, borrow
+    borrow == 1 iff a < b."""
+    t = a + (LIMB_MASK - b)
+    t[0] += 1
+    limbs, carry = normalize(t)
+    return limbs, 1 - carry
+
+
+def geq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a >= b elementwise over the batch; int64 {0,1} of batch shape."""
+    return 1 - sub(a, b)[1]
 
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -345,7 +345,7 @@ def tate_miller(P: Point, Q: Point, params: A1Params) -> Fp2:
             f = fp2_sqr(f, p)
             V = None
         else:
-            lam = (3 * xv * xv + 1) * pow(2 * yv, p - 2, p) % p
+            lam = (3 * xv * xv + 1) * pow(2 * yv, -1, p) % p
             f = fp2_mul(fp2_sqr(f, p), _line_value(V, lam, xq, yq, p), p)
             V = ec_dbl(V, p)
         if b == "1":
@@ -362,9 +362,9 @@ def tate_miller(P: Point, Q: Point, params: A1Params) -> Fp2:
                 if (yv + yp_) % p == 0:
                     V = None
                     continue
-                lam = (3 * xv * xv + 1) * pow(2 * yv, p - 2, p) % p
+                lam = (3 * xv * xv + 1) * pow(2 * yv, -1, p) % p
             else:
-                lam = (yp_ - yv) * pow(xp_ - xv, p - 2, p) % p
+                lam = (yp_ - yv) * pow(xp_ - xv, -1, p) % p
             f = fp2_mul(f, _line_value(V, lam, xq, yq, p), p)
             V = ec_add(V, P, p)
     return f

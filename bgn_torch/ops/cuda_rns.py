@@ -25,23 +25,26 @@ Kernels (TPU kernel replaced -> CUDA source):
   window_ladder bgn_tpu/ops/pallas_rns.py:window_ladder_pallas
                 -> csrc/window_ladder.cu
 
-Every kernel is built for two slot counts S (channels per thread): S = 4
-for k <= 64 channels per base and S = 6 for k <= 96, which covers 1024-bit
-keys (k = 90); `slots_for` picks S from k, and a wrapper raises
-ValueError for a CUDA tensor with k > 96.  They run one warp per lane
-with the loop state in registers, the RNS constants in shared memory, and
-compute the base extensions as exact int32 dot products; csrc/rns.cuh
-says what bounds them and why.  They agree with the plain versions bit
-for bit.
+Every kernel is built for three slot counts S (channels per thread): S = 4
+for k <= 64 channels per base, S = 6 for k <= 96, which covers 1024-bit
+keys (k = 90), and S = 12 for k <= 192, which covers 2048-bit keys
+(k = 184 to 186); `slots_for` picks S from k, and a wrapper raises
+ValueError for a CUDA tensor with k > 192.  They run one warp per lane
+with the loop state in registers, the RNS constants in shared memory (the
+two extension matrices in device memory above k = 96), and compute the
+base extensions as exact 32-bit integer dot products; csrc/rns.cuh says
+what bounds them and why.  They agree with the plain versions bit for
+bit.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
+from .._build import is_cpu as _is_cpu
+from .._build import launch as _launch
+from .._build import ptr as _ptr
 from ..fieldcore import rns as rn
 from ..fieldcore.rns import RNSCtx, RVal
 from . import rns_pairing as rp
@@ -53,8 +56,9 @@ torch.backends.cudnn.allow_tf32 = False
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
 
-SLOTS = (4, 6)                     # csrc/rns.cuh instantiations of Fe<S>
+SLOTS = (4, 6, 12)                 # csrc/rns.cuh instantiations of Fe<S>
 K_KERNEL_MAX = 16 * max(SLOTS)     # 2k channels over 32 threads x S slots
+K_SMEM_MAX = 96                    # rns.cuh BGN_KSMEM: matrices in smem
 _KP_COLS = rn._KMAX + 1            # columns of RNSCtx.kp
 
 
@@ -65,8 +69,7 @@ def slots_for(k: int) -> int:
             return s
     raise ValueError(
         f"the CUDA kernels take k <= {K_KERNEL_MAX} channels per base, got "
-        f"k = {k} (ROADMAP.md queue 3: wider keys need the constants in "
-        "global memory)")
+        f"k = {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -75,12 +78,19 @@ def slots_for(k: int) -> int:
 
 
 def _row_stride(k: int) -> int:
-    """>= k and == 1 (mod 32): csrc/rns.cuh bgn_row_stride."""
+    """csrc/rns.cuh bgn_row_stride: k <= 96, a destination row >= k and
+    == 1 (mod 32); above, a source row of 2k destination channels rounded
+    up to 32."""
+    if k > K_SMEM_MAX:
+        return -(-2 * k // 32) * 32
     return 1 if k <= 1 else ((k - 2) // 32 + 1) * 32 + 1
 
 
 def blob_layout(k: int) -> dict:
-    """Word offsets of the constant blob; one 4-byte word per entry."""
+    """Word offsets of the constant blob; one 4-byte word per entry.
+    "smem": the words the kernels copy to shared memory (all of them up to
+    k = 96; above, all but the two matrices, which start 128-byte
+    aligned)."""
     ch, rs = 2 * k, _row_stride(k)
     off, o = {"rs": rs}, 0
     for name, size in (("m", ch), ("recip", ch), ("one", ch),
@@ -89,10 +99,14 @@ def blob_layout(k: int) -> dict:
                        ("w1a", k), ("w2a", k)):
         off[name] = o
         o += size
+    if k > K_SMEM_MAX:
+        off["smem"] = o
+        o = -(-o // 32) * 32
     off["mat1"] = o
     o += k * rs
     off["mat2"] = o
     o += k * rs
+    off.setdefault("smem", o)
     off["words"] = o
     return off
 
@@ -102,9 +116,11 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
     fields bit-cast), cached on the context per device (`kernel_blobs`).
 
     mat1[j][i] = (A/a_i)*p*A^-1 mod b_j and mat2[i][j] = B/b_j mod a_i
-    are the unsplit extension matrices (destination-major rows, padded
-    with zeros to the row stride); w1a, w2a are the alpha weights
-    round(2^19/m).  All are read back from the split matrices w1, w2."""
+    are the unsplit extension matrices: destination-major rows padded with
+    zeros to the row stride up to k = 96; above, source-major rows indexed
+    by destination channel (mat1 at columns k..2k-1, mat2 at 0..k-1).
+    w1a, w2a are the alpha weights round(2^19/m).  All are read back from
+    the split matrices w1, w2."""
     dev = rns.m.device
     if dev in rns.kernel_blobs:
         return rns.kernel_blobs[dev]
@@ -129,9 +145,12 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
     blob[off["w1a"]:off["w1a"] + k] = w1[3 * k, k:]
     blob[off["w2a"]:off["w2a"] + k] = w2[3 * k, k:]
     rs = off["rs"]
-    for name, mat in (("mat1", mat1), ("mat2", mat2)):
+    for name, mat, col in (("mat1", mat1, k), ("mat2", mat2, 0)):
         t = np.zeros((k, rs), dtype=np.int32)
-        t[:, :k] = mat
+        if k > K_SMEM_MAX:
+            t[:, col:col + k] = mat.T
+        else:
+            t[:, :k] = mat
         blob[off[name]:off[name] + k * rs] = t.reshape(-1)
     out = torch.from_numpy(blob).to(dev)
     rns.kernel_blobs[dev] = out
@@ -141,22 +160,6 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Launch plumbing
 # ---------------------------------------------------------------------------
-
-
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _launch(entry: str, *args):
-    """Call a C entry of the kernel library on the current stream; raise
-    on a nonzero cudaGetLastError()."""
-    from .. import _build
-    lib = _build.library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry}: CUDA error {err} "
-                           f"({_build.error_string(err)})")
 
 
 def _check_state(rns: RNSCtx, *arrs):
@@ -184,14 +187,6 @@ def _digits_host(digits) -> list:
     if isinstance(digits, torch.Tensor):
         return [int(v) for v in digits.detach().cpu().tolist()]
     return [int(v) for v in np.asarray(digits).reshape(-1)]
-
-
-def _is_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return False
 
 
 # ---------------------------------------------------------------------------

@@ -230,6 +230,18 @@ def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
     return AffinePoint(xl, yl, dead.to(torch.int64))
 
 
+def mont_inv_rns(ctx: MontCtx, rns: RNSCtx, x):
+    """Montgomery-form limb inverse x^-1 (montgomery.mont_inv's contract,
+    limbs [L, *batch] in and out) with the Fermat chain x^(p-2) run in RNS
+    as one pow_loop launch instead of 16L sequential limb products; the
+    inverse of the limb batch inversion in curve.normalize.  Exact:
+    to_rns_mont / from_rns_mont round-trip the Montgomery representative."""
+    batch_shape = tuple(x.shape[1:])
+    xr = rn.to_rns_mont(rns, x.reshape(ctx.L, _flat(batch_shape)))
+    w = rn.r_pow_bits(rns, xr, ctx.pm2_bits)
+    return rn.from_rns_mont(rns, w).reshape((ctx.L,) + batch_shape)
+
+
 def add_complete_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
                      b: AffinePoint) -> AffinePoint:
     """COMPLETE affine a + b -> normalized AffinePoint (homomorphic L1

@@ -1,25 +1,26 @@
 """The BGN scheme on PyTorch: keygen, Encrypt, Mult, Decrypt and the
-level-1 homomorphic ops.
+homomorphic ops at both levels.
 
-The port's counterpart of `bgn_tpu/scheme.py`, all in the RNS domain on
-the card: keygen (host) -> encrypt_with_randomness -> mult -> decrypt of
-a level-2 ciphertext, and the level-1 path encrypt_deterministic /
-encrypt_zero -> add / sub / neg / mult_const -> decrypt of a level-1
-ciphertext, plus mult_const of a level-2 ciphertext and make_l2.  Layouts
-match the JAX package: an L1 ciphertext is AffinePoint(x [L, *B],
-y [L, *B], inf [*B]) of canonical 16-bit Montgomery limbs (int64 here), an
-L2 ciphertext is [2, L, *B].
+The port's counterpart of `bgn_tpu/scheme.py`: keygen (host) ->
+encrypt_with_randomness / encrypt_device / encrypt_deterministic ->
+add / sub / neg / mult / mult_const / make_l2 -> decrypt, for
+deterministic and non-deterministic keys.  Layouts match the JAX package:
+an L1 ciphertext is AffinePoint(x [L, *B], y [L, *B], inf [*B]) of
+canonical 16-bit Montgomery limbs (int64 here), an L2 ciphertext is
+[2, L, *B].
+
+Two field domains, as in the JAX package on the TPU: the pairing, the
+ladders, the L1 Add/Sub and the decrypts run in RNS (ops/rns_pairing.py);
+L2 Add/Sub, the re-randomization of a non-deterministic key (Q^r and
+e(Q, Q)^r), the complete L1 MultConst ladder and encrypt_device's
+sampler run on limbs through the CIOS product (fieldcore/montgomery.py).
 
 Entry points take `device=` and default to "cuda"; tests pass
 device="cpu", where the kernel wrappers run their plain PyTorch versions.
 Randomness comes from a `random.Random` the caller passes, as in the JAX
-package, so a seeded keygen gives the same key in both packages.
-
-Not in this slice (ROADMAP queue 1, slice 3: the limb-domain CIOS
-product): Add/Sub of L2 ciphertexts, re-randomization of
-non-deterministic keys, MultConst of L1 ciphertexts by exponents wider
-than key_bits//2 - 2 bits, encrypt_device, and the encoding tables.  Each
-raises NotImplementedError.
+package, drawn in the same order, so a seeded keygen gives the same key
+and a seeded op the same ciphertext in both packages.  The plaintext
+encoding tables are a later slice.
 """
 
 from __future__ import annotations
@@ -46,12 +47,12 @@ from .ops import pairing as pairing_mod
 from .ops import rns_pairing
 from .ops.curve import AffinePoint
 from .utils import convert
+from .utils import rng as rng_mod
 
 # Limb head-room beyond key_bits for the cofactor l (p = l*n - 1).
 _L_MARGIN_BITS = 32
 _WINDOW_BITS = 8
 _WINDOW_RADIX = 1 << _WINDOW_BITS
-_SLICE3 = "is not ported yet (limb CIOS product): ROADMAP.md queue 1, slice 3"
 
 
 # ---------------------------------------------------------------------------
@@ -61,22 +62,27 @@ _SLICE3 = "is not ported yet (limb CIOS product): ROADMAP.md queue 1, slice 3"
 
 class PublicDeviceKey(nn.Module):
     """Device-resident public key material.  Buffers: the generators P, Q
-    (limbs), the Miller digits n_naf, the bits of l (final exp), and the
-    radix-256 window tables of P and Q as RNS residues [J, R, 2k]
-    (row d of window j = base^(d*256^j), row 0 the identity), laid out so
-    that the dual_ladder kernel reads a row as one contiguous run."""
+    (limbs), the Miller digits n_naf, the bits of l (final exp), pair_qq =
+    e(Q, Q) [2, L] (L2 re-randomization), the radix-256 window tables of P
+    and Q as RNS residues [J, R, 2k] (row d of window j = base^(d*256^j),
+    row 0 the identity), laid out so that the dual_ladder kernel reads a
+    row as one contiguous run, and Q's table as limbs, q_tab = AffinePoint
+    [L, J, R] (the limb fixed-base ladder of the L1 re-randomization)."""
 
     def __init__(self, ctx: MontCtx, rns: RNSCtx, P: AffinePoint,
-                 Q: AffinePoint, n_naf, l_bits, p_win, q_win):
+                 Q: AffinePoint, n_naf, l_bits, pair_qq, p_win, q_win,
+                 q_tab: AffinePoint):
         super().__init__()
         self.ctx = ctx
         self.rns = rns
-        for name, pt in (("P", P), ("Q", Q)):
+        for name, pt in (("P", P), ("Q", Q), ("q_tab", q_tab)):
             for f in AffinePoint._fields:
                 self.register_buffer(f"{name}_{f}", getattr(pt, f))
         self.register_buffer("n_naf", torch.as_tensor(n_naf, dtype=torch.int64))
         self.register_buffer("l_bits",
                              torch.as_tensor(l_bits, dtype=torch.int64))
+        self.register_buffer("pair_qq",
+                             torch.as_tensor(pair_qq, dtype=torch.int64))
         for name, (x, y) in (("p_win", p_win), ("q_win", q_win)):
             self.register_buffer(f"{name}_x", torch.as_tensor(x).contiguous())
             self.register_buffer(f"{name}_y", torch.as_tensor(y).contiguous())
@@ -88,6 +94,10 @@ class PublicDeviceKey(nn.Module):
     @property
     def Q(self) -> AffinePoint:
         return AffinePoint(self.Q_x, self.Q_y, self.Q_inf)
+
+    @property
+    def q_tab(self) -> AffinePoint:
+        return AffinePoint(self.q_tab_x, self.q_tab_y, self.q_tab_inf)
 
     @property
     def p_win(self):
@@ -115,6 +125,7 @@ class BGNPublicKey:
         self.P_host = P_host
         self.Q_host = Q_host
         self.dev = dev
+        self._sampler_ctx = None      # lazy MontCtx mod n (encrypt_device)
 
     def encrypt(self, ms: Sequence[int], rng=None) -> "Ciphertext":
         """Randomized encryption of a batch of ints (Encrypt, bgn.go:334)."""
@@ -137,6 +148,24 @@ class BGNPublicKey:
         pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
         return Ciphertext(pt, level2=False)[:B]
 
+    def encrypt_device(self, ms, generator: torch.Generator) -> "Ciphertext":
+        """Randomized encryption with the randomness drawn on the device:
+        the exponent r of Q^r is 16-bit limbs from `generator` (a
+        torch.Generator on the key's device) reduced mod n with < 2^-64
+        bias (utils/rng.py).  The host-random `encrypt` remains the default
+        (crypto/rand, bgn.go:567)."""
+        ms = _to_list(ms)
+        B = len(ms)
+        Bp = _bucket(B)
+        m_digits, m_neg = _signed_digits(ms + [0] * (Bp - B), self.n)
+        if self._sampler_ctx is None:
+            self._sampler_ctx = rng_mod.make_device_sampler_ctx(
+                self.n, device=self.dev.n_naf.device)
+        J = -(-self.n.bit_length() // _WINDOW_BITS)
+        r_digits = _device_r_digits(self._sampler_ctx, generator, Bp, J)
+        pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
+        return Ciphertext(pt, level2=False)[:B]
+
     def encrypt_deterministic(self, ms) -> "Ciphertext":
         """C = P^m (EncryptDeterministic, bgn.go:325-331); the batch is
         padded to a power of two (min 8) as in encrypt_with_randomness."""
@@ -151,25 +180,25 @@ class BGNPublicKey:
         return self.encrypt_deterministic([0] * batch)
 
     def add(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
-        """Homomorphic addition with level promotion (Add, bgn.go:442);
-        level 1 only in this slice.  rng: re-randomization, which a
-        deterministic key skips."""
-        self._check_deterministic("re-randomizing Add")
+        """Homomorphic addition with level promotion (Add, bgn.go:442).
+        rng: the re-randomization's source, which a deterministic key
+        skips."""
         a, b = self._promote(a, b)
         if a.level2:
-            raise NotImplementedError("Add of level-2 ciphertexts " + _SLICE3)
-        return Ciphertext(_add_l1_kernel(self.dev, a.data, b.data),
-                          level2=False)
+            out = _add_l2_kernel(self.dev, a.data, b.data)
+            return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
+        out = _add_l1_kernel(self.dev, a.data, b.data)
+        return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
     def sub(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
         """Homomorphic subtraction (Sub, bgn.go:375-433; the bgn.go:411
-        level-flag bug is not replicated); level 1 only in this slice."""
-        self._check_deterministic("re-randomizing Sub")
+        level-flag bug is not replicated)."""
         a, b = self._promote(a, b)
         if a.level2:
-            raise NotImplementedError("Sub of level-2 ciphertexts " + _SLICE3)
-        return Ciphertext(_sub_l1_kernel(self.dev, a.data, b.data),
-                          level2=False)
+            out = _sub_l2_kernel(self.dev, a.data, b.data)
+            return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
+        out = _sub_l1_kernel(self.dev, a.data, b.data)
+        return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
     def neg(self, a: "Ciphertext", rng=None) -> "Ciphertext":
         """Additive inverse: Sub(E_det(0), c) (Neg, bgn.go:436-439)."""
@@ -182,8 +211,8 @@ class BGNPublicKey:
         bgn.go:294): two L1 inputs, one L2 result."""
         if a.level2 or b.level2:
             raise ValueError("Mult requires two level-1 ciphertexts")
-        self._check_deterministic("re-randomizing Mult")
-        return Ciphertext(_mult_kernel(self.dev, a.data, b.data), level2=True)
+        out = _mult_kernel(self.dev, a.data, b.data)
+        return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
 
     def mult_const(self, a: "Ciphertext", ks, rng=None) -> "Ciphertext":
         """Multiply by plaintext constant(s): C^k (MultConst, bgn.go:253).
@@ -192,22 +221,20 @@ class BGNPublicKey:
         Per-element RNS ladders (rns_pairing.scalar_mul_vec_rns /
         fp2_pow_vec_rns).  The G1 ladder's incomplete additions are safe
         only while 2^nbits < min(q1, q2); an L1 exponent wider than
-        key_bits//2 - 2 bits (only |k| ~ n) needs the complete limb
-        ladder of slice 3."""
-        self._check_deterministic("re-randomizing MultConst")
+        key_bits//2 - 2 bits (only |k| ~ n) takes the complete limb
+        ladder (curve.scalar_mul)."""
         ks = _const_list(ks, a.batch_shape)
         k_bits, k_neg = _signed_bits(ks, self.n)
         k_bits = k_bits.reshape((k_bits.shape[0],) + tuple(a.batch_shape))
         k_neg = k_neg.reshape(tuple(a.batch_shape))
         if a.level2:
             out = _mult_const_l2_rns_kernel(self.dev, a.data, k_bits, k_neg)
-            return Ciphertext(out, level2=True)
-        if k_bits.shape[0] > self.key_bits // 2 - 2:
-            raise NotImplementedError(
-                f"MultConst of a level-1 ciphertext by a {k_bits.shape[0]}-"
-                "bit exponent (the complete limb ladder) " + _SLICE3)
-        out = _mult_const_l1_rns_kernel(self.dev, a.data, k_bits, k_neg)
-        return Ciphertext(out, level2=False)
+            return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
+        kern = (_mult_const_l1_rns_kernel
+                if k_bits.shape[0] <= self.key_bits // 2 - 2
+                else _mult_const_l1_kernel)
+        out = kern(self.dev, a.data, k_bits, k_neg)
+        return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
     def make_l2(self, a: "Ciphertext") -> "Ciphertext":
         """Promote L1 -> L2 via e(C, P) (makeL2, bgn.go:316-321)."""
@@ -222,12 +249,28 @@ class BGNPublicKey:
             a = self.make_l2(a)
         return a, b
 
-    def _check_deterministic(self, what: str) -> None:
-        """A non-deterministic key re-randomizes every op's result with
-        Q^r or e(Q, Q)^r, which needs the limb product of slice 3."""
-        if not self.deterministic:
-            raise NotImplementedError(
-                f"{what} for a non-deterministic key " + _SLICE3)
+    def _rerandomize_l1(self, pt: AffinePoint, rng) -> AffinePoint:
+        """Multiply by Q^r unless deterministic (e.g. bgn.go:484-496); one
+        r per lane from rng, in the JAX package's order."""
+        if self.deterministic:
+            return pt
+        r_digits, _ = _signed_digits(
+            [_rand_below(self.n, rng) for _ in range(_flat(pt.inf.shape))],
+            self.n)
+        r_digits = r_digits.reshape((r_digits.shape[0],)
+                                    + tuple(pt.inf.shape))
+        return _rerand_l1_kernel(self.dev, pt, r_digits)
+
+    def _rerandomize_l2(self, z, rng):
+        """Multiply by e(Q, Q)^r unless deterministic (e.g.
+        bgn.go:462-475)."""
+        if self.deterministic:
+            return z
+        shape = tuple(z.shape[2:])
+        r_bits, _ = _signed_bits([_rand_below(self.n, rng)
+                                  for _ in range(_flat(shape))], self.n)
+        r_bits = r_bits.reshape((r_bits.shape[0],) + shape)
+        return _rerand_l2_kernel(self.dev, z, r_bits)
 
     def setup_decryption(self, sk: "BGNSecretKey",
                          rng=None) -> bsgs_mod.DecryptTables:
@@ -337,14 +380,20 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
     ctx = mg.make_mont_ctx(params.p, L=L, device=device)
     rns = _make_rns(params.p, L, device)
     n_naf, _ = _exp_digits(params.n, key_bits, (params.q1, params.q2, params.n))
+    q_rows = _window_table(gk.Q, params.p, key_bits)
     dev = PublicDeviceKey(
         ctx=ctx, rns=rns,
         P=convert.point_from_host(ctx, gk.P),
         Q=convert.point_from_host(ctx, gk.Q),
         n_naf=n_naf,
         l_bits=lb.int_to_bits(params.l, 32),
+        pair_qq=convert.fp2_single_from_host(
+            ctx, hm.tate_pairing(gk.Q, gk.Q, params)),
         p_win=_win_rns(params.p, L, _window_table(gk.P, params.p, key_bits)),
-        q_win=_win_rns(params.p, L, _window_table(gk.Q, params.p, key_bits)),
+        q_win=_win_rns(params.p, L, q_rows),
+        q_tab=convert.affine_from_host(
+            ctx, q_rows, batch_shape=(len(q_rows) // _WINDOW_RADIX,
+                                      _WINDOW_RADIX)),
     ).to(device)
     pk = BGNPublicKey(key_bits=key_bits, n=params.n, l=params.l, p=params.p,
                       msg_space=msg_space, deterministic=deterministic,
@@ -361,21 +410,52 @@ def _make_rns(p: int, L: int, device) -> RNSCtx:
 def _window_table(base, p: int, key_bits: int) -> list:
     """Host rows of the radix-2^w fixed-base table: entry (j, d) =
     base^(d*R^j), R = _WINDOW_RADIX, row-major over (j, d); d = 0 is the
-    identity (None)."""
+    identity (None).  The J windows advance together (entry d = entry
+    d-1 + base^(R^j)), so each step shares one inversion."""
     R = _WINDOW_RADIX
     J = -(-key_bits // _WINDOW_BITS)
-    rows = []
-    gen = base
-    for _ in range(J):
-        acc = None
-        row = [None]
-        for _ in range(R - 1):
-            acc = hm.ec_add(acc, gen, p)
-            row.append(acc)
-        rows.extend(row)
+    gens = [base]
+    for _ in range(J - 1):
+        gen = gens[-1]
         for _ in range(_WINDOW_BITS):
             gen = hm.ec_dbl(gen, p)
-    return rows
+        gens.append(gen)
+    cols = [[None] * J, gens]
+    for _ in range(2, R):
+        cols.append(_batch_ec_add(cols[-1], gens, p))
+    return [cols[d][j] for j in range(J) for d in range(R)]
+
+
+def _batch_ec_add(Ps, Qs, p: int) -> list:
+    """[hm.ec_add(P, Q, p) for P, Q in zip(Ps, Qs)] with one modular
+    inversion for the batch (Montgomery's trick); lanes with the identity
+    or opposite points go to hm.ec_add itself."""
+    dens = []
+    for P, Q in zip(Ps, Qs):
+        if P is None or Q is None or (P[0] == Q[0]
+                                      and (P[1] + Q[1]) % p == 0):
+            dens.append(None)
+        else:
+            dens.append((2 * P[1] if P[0] == Q[0] else Q[0] - P[0]) % p)
+    live = [d for d in dens if d is not None]
+    pre = [1]
+    for d in live:
+        pre.append(pre[-1] * d % p)
+    inv = pow(pre[-1], -1, p)
+    invs = [0] * len(live)
+    for i in range(len(live) - 1, -1, -1):
+        invs[i] = inv * pre[i] % p
+        inv = inv * live[i] % p
+    out, it = [], iter(invs)
+    for P, Q, d in zip(Ps, Qs, dens):
+        if d is None:
+            out.append(hm.ec_add(P, Q, p))
+            continue
+        (x1, y1), (x2, y2) = P, Q
+        lam = (3 * x1 * x1 + 1 if x1 == x2 else y2 - y1) * next(it) % p
+        x3 = (lam * lam - x1 - x2) % p
+        out.append((x3, (lam * (x1 - x3) - y1) % p))
+    return out
 
 
 def _win_rns(p: int, L: int, rows) -> Tuple[np.ndarray, np.ndarray]:
@@ -398,8 +478,9 @@ def _win_rns(p: int, L: int, rows) -> Tuple[np.ndarray, np.ndarray]:
         for b, v in enumerate(vals):
             buf[b * d8:(b + 1) * d8] = (v * A % p).to_bytes(d8, "little")
         digits = np.frombuffer(bytes(buf), dtype=np.uint8)
-        digits = digits.reshape(len(vals), d8).astype(np.int64)  # [B, D8]
-        S = digits @ pow2.T                                 # [B, 2k]
+        digits = digits.reshape(len(vals), d8).astype(np.float64)  # [B, D8]
+        # exact in float64: every partial sum is below 2 L * 2^8 * 2^12
+        S = (digits @ pow2.T.astype(np.float64)).astype(np.int64)  # [B, 2k]
         return (S % m[None, :]).astype(np.float32).reshape(J, R, -1)
 
     xs = [0 if P is None else P[0] for P in rows]
@@ -528,13 +609,26 @@ def _exp_digits(e: int, width: int, mods):
 # ---------------------------------------------------------------------------
 
 
+def _device_r_digits(sampler_ctx: MontCtx, generator, batch: int, J: int):
+    """Device-sampled exponents r < n as radix-2^w window digits
+    [J, batch] int64, least significant first."""
+    r = rng_mod.device_random_below(sampler_ctx, generator, (batch,))
+    per = lb.LIMB_BITS // _WINDOW_BITS          # digits per 16-bit limb
+    nl = -(-J // per)
+    limbs = r[:nl]
+    parts = [(limbs >> (_WINDOW_BITS * i)) & (_WINDOW_RADIX - 1)
+             for i in range(per)]
+    return torch.stack(parts, dim=1).reshape(-1, batch)[:J]
+
+
 def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
     """Both window chains + the g +- h combine (dual_ladder kernel), then
-    the RNS normalize (batch-inversion scans + one pow_loop)."""
+    the RNS normalize (batch-inversion scans + one pow_loop).  Digits:
+    host arrays or device tensors."""
     device = dev.n_naf.device
     Jm = m_digits.shape[0]
-    dig = torch.as_tensor(np.concatenate([m_digits, r_digits], axis=0),
-                          device=device)
+    dig = torch.cat([torch.as_tensor(m_digits, device=device),
+                     torch.as_tensor(r_digits, device=device)], dim=0)
     mneg = torch.as_tensor(m_neg, device=device)
     X, Y, Z = cuda_rns.dual_ladder(dev.rns, dev.p_win, dev.q_win, Jm, dig,
                                    mneg)
@@ -559,9 +653,30 @@ def _sub_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
                                         curve.neg_affine(dev.ctx, b))
 
 
+def _add_l2_kernel(dev: PublicDeviceKey, a, b):
+    return fp2.mul(dev.ctx, a, b)
+
+
+def _sub_l2_kernel(dev: PublicDeviceKey, a, b):
+    """GT division; GT is unitary, so b^-1 = conj(b)."""
+    return fp2.mul(dev.ctx, a, fp2.conj(dev.ctx, b))
+
+
 def _make_l2_kernel(dev: PublicDeviceKey, a: AffinePoint):
     return pairing_mod.pairing(dev.ctx, a, dev.P, dev.n_naf, dev.l_bits,
                                rns=dev.rns)
+
+
+def _mult_const_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, k_bits,
+                          k_neg):
+    """The complete limb double-and-add (curve.scalar_mul, per-element
+    bits) for exponents too wide for the RNS ladder, Y negated where
+    k < 0, then the limb normalize."""
+    ctx = dev.ctx
+    r = curve.scalar_mul(ctx, a, k_bits)
+    neg = torch.as_tensor(k_neg, device=r.Y.device)
+    r = curve.JacPoint(r.X, lb.select(neg, mg.mod_neg(ctx, r.Y), r.Y), r.Z)
+    return curve.normalize(ctx, r, rns=dev.rns)
 
 
 def _mult_const_l1_rns_kernel(dev: PublicDeviceKey, a: AffinePoint, k_bits,
@@ -584,6 +699,21 @@ def _mult_const_l2_rns_kernel(dev: PublicDeviceKey, a, k_bits, k_neg):
 def _mult_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
     return pairing_mod.pairing(dev.ctx, a, b, dev.n_naf, dev.l_bits,
                                rns=dev.rns)
+
+
+def _rerand_l1_kernel(dev: PublicDeviceKey, pt: AffinePoint, r_digits):
+    """pt + Q^r: Q^r from Q's limb window table, normalized, then one
+    complete limb addition and the normalize."""
+    ctx = dev.ctx
+    h = curve.normalize(ctx, curve.fixed_base_mul(ctx, dev.q_tab, r_digits),
+                        rns=dev.rns)
+    return curve.normalize(ctx, curve.add_affine(ctx, pt, h), rns=dev.rns)
+
+
+def _rerand_l2_kernel(dev: PublicDeviceKey, z, r_bits):
+    """z * e(Q, Q)^r on limbs (per-element square-and-multiply)."""
+    mask = fp2.pow_bits(dev.ctx, dev.pair_qq, r_bits)
+    return fp2.mul(dev.ctx, z, mask)
 
 
 def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, z, q1_naf):

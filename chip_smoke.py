@@ -2,19 +2,22 @@
 """Drive the bgn_torch port on one NVIDIA H100 (or another CUDA card).
 
     python3 chip_smoke.py [--batch 8192] [--decrypt-batch 2048] [--seed 1]
-                          [--wide-batch 512]
+                          [--wide-batch 512] [--big-batch 16]
 
 Phases, each of which raises on failure (the script then exits nonzero):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the build of every kernel in bgn_torch/csrc with nvcc's -Xptxas -v
-     report (registers, shared memory, spills) for both instantiations,
-     S = 4 slots (k <= 64) and S = 6 (k <= 96);
+     report (registers, shared memory, spills) for every instantiation of
+     the RNS kernels, S = 4 slots (k <= 64), S = 6 (k <= 96) and S = 12
+     (k <= 192, the extension matrices in device memory), and mont_mul;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
-  3. kernels: each of the seven CUDA kernels at the shapes the main paths
-     give it, against its plain PyTorch version on the same inputs
-     (torch.equal: the kernels are exact integer arithmetic), with the
-     kernel's and the plain version's times (CUDA events);
+  3. kernels: each of the seven RNS kernels at the shapes the main paths
+     give it, and mont_mul at L = 34 (N = 8192, also with a broadcast R^2
+     operand), L = 66 and L = 130 (N = 512), against its plain PyTorch
+     version on the same inputs (torch.equal: the kernels are exact
+     integer arithmetic), with the kernel's and the plain version's times
+     (CUDA events);
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -28,8 +31,21 @@ Phases, each of which raises on failure (the script then exits nonzero):
      kernels): every kernel against its plain version at N = 64, then
      Encrypt -> Mult -> DecryptL2 and Encrypt -> Add -> Decrypt at
      wide-batch lanes, every lane checked;
-  5. one call of each op under torch.profiler: device busy time, idle
-     share and the costliest device kernels.
+  4d. the limb path: a non-deterministic 512-bit key, every op
+     re-randomized (Q^r, e(Q, Q)^r on limbs through mont_mul): Encrypt ->
+     Mult -> L2 Add and Sub of two products -> DecryptL2; L1 Add, Sub,
+     Neg, MultConst -> Decrypt; MultConst by n - 1 (the complete limb
+     ladder) -> -m; MultConst L2; encrypt_device with a seeded generator.
+     Every lane decrypted and checked, a few lanes against hostmath with
+     the same r replayed; mont_mul must be launched; ops/s of a first and
+     a second call;
+  4e. a 2048-bit key (k = 184 at seed 1: the S = 12 kernels): every RNS
+     kernel against its plain version at N = big-batch over 32-digit
+     strings, then Encrypt -> Mult -> DecryptL2 at big-batch lanes, every
+     lane checked;
+  5. one call of each op under torch.profiler (the re-randomized Mult and
+     L2 Add included): device busy time, idle share and the costliest
+     device kernels.
 The line before the last is one JSON object {"kernels": [...]} (times,
 launches, bounds); the last line is {"ok": true, "device": {...}}.
 There is no CPU path: without a CUDA device the script exits nonzero
@@ -51,6 +67,10 @@ from pathlib import Path
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_BF16_S = 989e12
+# 32-bit integer multiply-adds per second: 132 SMs x 64 INT32 lanes x
+# 1.98 GHz (the Hopper white paper's 33.5 INT32 TOPS counts a
+# multiply-add as two operations).
+PEAK_INT32_MAD_S = 16.7e12
 
 # Elementwise fp32 operations per lane, counted from the plain code
 # (bgn_torch/fieldcore/rns.py): a _red is 7 ops (mul, floor, mul, sub,
@@ -79,12 +99,18 @@ REPLACES = {
     "ladder_loop": "bgn_tpu/ops/pallas_rns.py:359",
     "window_ladder_tab": "bgn_tpu/ops/pallas_rns.py:536",
     "window_ladder": "bgn_tpu/ops/pallas_rns.py:715",
+    # one integer kernel for both TPU forms (mont_mul_pallas_f32 and
+    # mont_mul_pallas, :190): the TPU split them only to avoid int32
+    # multiplies
+    "mont_mul": "bgn_tpu/fieldcore/pallas_mont.py:127",
 }
 # kernels each main path must launch (window_ladder is on no path: the
 # JAX package has no caller of window_ladder_pallas either)
 MAIN_PATH = ("miller_loop", "pow_loop", "fp2_pow_loop", "dual_ladder")
 L1_PATH = ("ladder_loop", "window_ladder_tab", "pow_loop", "miller_loop",
            "fp2_pow_loop")
+LIMB_PATH = ("mont_mul", "dual_ladder", "miller_loop", "pow_loop",
+             "fp2_pow_loop", "ladder_loop")
 
 
 def log(msg: str) -> None:
@@ -104,15 +130,20 @@ def ops_of(k: int, counts: dict) -> tuple:
     return elem, mm
 
 
-def bound(elem_total: float, mm_total: float, nbytes: float) -> tuple:
+def bound(elem_total: float, mm_total: float, nbytes: float,
+          int_mads: float = 0.0) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over their peak rates."""
     t = {"bytes": nbytes / PEAK_BYTES_S,
-         "operations": max(elem_total / PEAK_FP32_S, mm_total / PEAK_BF16_S)}
+         "operations": max(elem_total / PEAK_FP32_S, mm_total / PEAK_BF16_S,
+                           int_mads / PEAK_INT32_MAD_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
 
 
-def cuda_ms(fn, torch, min_total_ms: float = 1500.0, max_reps: int = 50):
-    """Mean ms of fn() over repeated launches (CUDA events, warmed up)."""
+def cuda_ms(fn, torch) -> float:
+    """Mean ms of fn() over repeated launches (CUDA events, warmed up; up
+    to 50 launches or about 1.5 s)."""
     fn()
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -121,7 +152,7 @@ def cuda_ms(fn, torch, min_total_ms: float = 1500.0, max_reps: int = 50):
     e1.record()
     torch.cuda.synchronize()
     one = e0.elapsed_time(e1)
-    reps = max(1, min(max_reps, int(min_total_ms / max(one, 1e-3))))
+    reps = max(1, min(50, int(1500.0 / max(one, 1e-3))))
     e0.record()
     for _ in range(reps):
         fn()
@@ -132,9 +163,13 @@ def cuda_ms(fn, torch, min_total_ms: float = 1500.0, max_reps: int = 50):
 
 def profile_op(torch, label: str, fn, card: str, top: int = 6) -> None:
     """One call of fn under torch.profiler: wall time, summed device time
-    of its kernels, the device's idle share, and the costliest kernels.
-    The profiler's own host overhead lengthens the wall time, so the idle
+    of its kernels (device-side events only, so a torch op and the kernel
+    it launches are not both counted), the device's idle share, and the
+    costliest kernels.  The raw events are read directly: key_averages()
+    takes minutes over the ~10^6 events of a limb-path call.  The
+    profiler's own host overhead lengthens the wall time, so the idle
     share is an upper estimate."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -143,15 +178,18 @@ def profile_op(torch, label: str, fn, card: str, top: int = 6) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
-    evs = [e for e in prof.key_averages()
-           if getattr(e, "self_device_time_total", 0) > 0]
-    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    busy = sum(ms for ms, _ in by_name.values())
     log(f"trace {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall:.3f}, {sum(e.count for e in evs)} "
-        f"device ops [{card}]")
-    for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:top]:
-        log(f"  {e.self_device_time_total / 1e3:9.2f} ms  x{e.count:<6d} "
-            f"{e.key[:70]}")
+        f"idle share {1 - busy / wall:.3f}, "
+        f"{sum(n for _, n in by_name.values())} device ops [{card}]")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        log(f"  {ms:9.2f} ms  x{n:<6d} {name[:70]}")
 
 
 def ptxas_table(report: str) -> list:
@@ -159,10 +197,10 @@ def ptxas_table(report: str) -> list:
     frame and spill sizes ptxas reports for the entry and its callees."""
     rows, cur = [], None
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '_Z\d+bgn_(\w+?)_kernelILi"
-                      r"(\d+)E", line)
+        m = re.search(r"Compiling entry function '_Z\d+bgn_(\w+?)_kernel"
+                      r"(?:ILi(\d+)E)?", line)
         if m:
-            cur = {"kernel": m.group(1), "S": int(m.group(2)),
+            cur = {"kernel": m.group(1), "S": int(m.group(2) or 0),
                    "registers": None, "stack": 0, "spill_stores": 0,
                    "spill_loads": 0}
             rows.append(cur)
@@ -186,6 +224,7 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--decrypt-batch", type=int, default=2048)
     ap.add_argument("--wide-batch", type=int, default=512)
+    ap.add_argument("--big-batch", type=int, default=16)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
@@ -198,9 +237,12 @@ def main() -> None:
     import numpy as np
 
     from bgn_torch import _build, hostmath as hm, scheme
+    from bgn_torch.fieldcore import cuda_mont, limbs as lb, montgomery as mg
     from bgn_torch.fieldcore import rns as rn
     from bgn_torch.ops import cuda_rns, rns_pairing as rp
-    from bgn_torch.utils import convert
+    from bgn_torch.utils import convert, rng as rng_mod
+
+    wrappers = cuda_rns.WRAPPERS + (cuda_mont.mont_mul,)
 
     dev = torch.device("cuda")
     t_start = phase_t = time.time()
@@ -225,15 +267,16 @@ def main() -> None:
     _build.build(force=True)
     _build.library()
     log(f"build: {time.time() - t0:.1f} s (nvcc, {len(list(_build.CSRC.glob('*.cu')))} "
-        "sources in parallel, each kernel for S = 4 and S = 6 slots)")
+        "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots)")
     for r in ptxas_table(_build.BUILD_INFO["ptxas"]):
         log(f"  ptxas {r['kernel']:<18s} S={r['S']}: {r['registers']} "
             f"registers, stack {r['stack']} B, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-    for k_ in (45, 90):
-        log(f"  k = {k_}: S = {cuda_rns.slots_for(k_)}, "
-            f"{cuda_rns.blob_layout(k_)['words'] * 4} B of dynamic shared "
-            "memory per block")
+    for k_ in (45, 90, 185):
+        lay = cuda_rns.blob_layout(k_)
+        log(f"  k = {k_}: S = {cuda_rns.slots_for(k_)}, {lay['smem'] * 4} B "
+            f"of dynamic shared memory per block, {lay['words'] * 4} B of "
+            "constants")
     phase_done("1 (card, build)")
 
     # -- 2. keys --------------------------------------------------------
@@ -253,10 +296,16 @@ def main() -> None:
     f32 = 4
 
     def check(name, shape, kern, plain, elem_mm, nbytes, key_bits):
-        got, want = kern(), plain()
+        """The kernel against its plain version (one call of the plain
+        version, which is also its time), then the kernel's time."""
+        got = kern()
+        torch.cuda.synchronize()
+        t = time.time()
+        want = plain()
+        torch.cuda.synchronize()
+        ms_p = (time.time() - t) * 1e3
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
-        torch.cuda.synchronize()
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(float((g - w).abs().max()) if g.numel() else 0.0
                   for g, w in zip(got, want))
@@ -264,8 +313,7 @@ def main() -> None:
             raise AssertionError(f"{name} {shape} ({key_bits}-bit): kernel "
                                  f"!= plain (max abs err {err})")
         ms_k = cuda_ms(kern, torch)
-        ms_p = cuda_ms(plain, torch, min_total_ms=0.0, max_reps=1)
-        b_ms, b_by = bound(*elem_mm, nbytes)
+        b_ms, b_by = bound(elem_mm[0], elem_mm[1], nbytes, *elem_mm[2:])
         rec = {"shape": shape, "key_bits": key_bits, "ms": ms_k,
                "plain_ms": ms_p, "max_abs_err": err, "bound_ms": b_ms,
                "bound_by": b_by}
@@ -275,27 +323,30 @@ def main() -> None:
         results.setdefault(name, []).append(rec)
         return got
 
-    def kernel_checks(pk, sk, B, Bd, seed):
+    def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder, miller_loop, window_ladder_tab, window_ladder at B
         lanes, ladder_loop and fp2_pow_loop (q1) at Bd, pow_loop at B and
-        1."""
+        1.  trunc: cut every digit string to its first trunc digits and
+        the random exponents to trunc bits (the plain versions then stay
+        short)."""
         ctx, rns, dk = pk.dev.ctx, pk.dev.rns, pk.dev
         k, key_bits = rns.k, pk.key_bits
         state = 2 * k * f32                # bytes of one residue element
         krng = random.Random(seed)
+        top = pk.n if trunc is None else 1 << trunc
         ms = [krng.randrange(340) for _ in range(B)]
-        rs = [krng.randrange(pk.n) for _ in range(B)]
+        rs = [krng.randrange(top) for _ in range(B)]
         m_digits, m_neg = scheme._signed_digits(ms, pk.n)
         r_digits, _ = scheme._signed_digits(rs, pk.n)
         Jm = m_digits.shape[0]
         dig_np = np.concatenate([m_digits, r_digits], axis=0)
         dig = torch.as_tensor(dig_np, device=dev)
         mneg = torch.as_tensor(m_neg, device=dev)
-        n_naf = dk.n_naf.cpu().numpy()
-        pm2 = ctx.pm2_bits.cpu().numpy()
-        l_bits = dk.l_bits.cpu().numpy()
-        q1_naf = np.asarray(sk.q1_naf)
+        n_naf = dk.n_naf.cpu().numpy()[:trunc]
+        pm2 = ctx.pm2_bits.cpu().numpy()[:trunc]
+        l_bits = dk.l_bits.cpu().numpy()[:trunc]
+        q1_naf = np.asarray(sk.q1_naf)[:trunc]
 
         # dual ladder (Encrypt core) at B lanes
         live = dig_np != 0
@@ -319,8 +370,9 @@ def main() -> None:
         # digits (m < 340) and full-width digits (m < n); window_ladder on
         # the rows gathered for the full-width digits
         full_np, _ = scheme._signed_digits(
-            [krng.randrange(pk.n) for _ in range(B)], pk.n)
-        for label, dnp in (("m<340", m_digits), ("m<n", full_np)):
+            [krng.randrange(top) for _ in range(B)], pk.n)
+        wide = "m<n" if trunc is None else f"m<2^{trunc}"
+        for label, dnp in (("m<340", m_digits), (wide, full_np)):
             lv = dnp != 0
             n_add = int(np.maximum(lv.sum(axis=0) - 1, 0).sum())
             row_bytes = int(lv.sum()) * 2 * state
@@ -336,7 +388,7 @@ def main() -> None:
                                                                  dgt))
         ginf = dgt == 0
         got = check(
-            "window_ladder", f"B={B}, Jd={dnp.shape[0]} (m<n, gathered)",
+            "window_ladder", f"B={B}, Jd={dnp.shape[0]} ({wide}, gathered)",
             lambda: cuda_rns.window_ladder(rns, gx, gy, ginf),
             lambda: cuda_rns.window_ladder_plain(rns, gx, gy, ginf),
             (n_add * e1, n_add * m1),
@@ -366,7 +418,7 @@ def main() -> None:
         # ladder_loop (L1 decrypt: csk = C^q1) at Bd lanes
         cx, cy = ax[:, :Bd].contiguous(), ay[:, :Bd].contiguous()
         one = rns.one_rns.expand_as(cx).contiguous()
-        qd = q1_naf[1:]
+        qd = np.asarray(sk.q1_naf)[1:][:trunc]
         e, mm = ops_of(k, {"dbl_pt": len(qd),
                            "add_pt": int(np.count_nonzero(qd))})
         check("ladder_loop", f"N={Bd}, q1_naf={len(qd)}",
@@ -408,15 +460,44 @@ def main() -> None:
                       key_bits)
 
     kernel_checks(pk, sk, B, Bd, args.seed + 1)
-    phase_done("3 (kernels, 512-bit)")
+
+    def mont_checks(seed):
+        """mont_mul against its plain version: L = 34 (the 512-bit key's
+        limbs) at B lanes, also with a broadcast R^2 operand (to_mont's
+        stride-0 lanes), and L = 66 and 130 (1024- and 2048-bit keys) at
+        512 lanes over random odd moduli."""
+        mrng = random.Random(seed)
+        for bits, n in ((512, B), (1024, 512), (2048, 512)):
+            if bits == 512:
+                mctx = ctx
+            else:
+                pm = mrng.getrandbits(bits + 32) | (1 << (bits + 31)) | 1
+                mctx = mg.make_mont_ctx(
+                    pm, L=lb.num_limbs_for_bits(bits + 32), device=dev)
+            Lm = mctx.L
+            x, y = (torch.as_tensor(lb.ints_to_limbs(
+                [mrng.randrange(mctx.p_host) for _ in range(n)], Lm),
+                device=dev) for _ in range(2))
+            cases = [("", y)]
+            if bits == 512:
+                cases.append((", R^2 broadcast", mctx.r2[:, None].expand(Lm, n)))
+            for label, yy in cases:
+                nbytes = 8 * Lm * (2 * n + (n if yy.stride(1) else 1))
+                check("mont_mul", f"L={Lm}, N={n}{label}",
+                      lambda c=mctx, y_=yy: cuda_mont.mont_mul(c, x, y_),
+                      lambda c=mctx, y_=yy: cuda_mont.mont_mul_plain(c, x, y_),
+                      (0, 0, 2 * Lm * Lm * n), nbytes, bits)
+
+    mont_checks(args.seed + 8)
+    phase_done("3 (kernels, 512-bit; mont_mul at 512, 1024, 2048 bits)")
 
     # -- 4. the main path end to end ---------------------------------------
     def zero_counts():
-        for wfn in cuda_rns.WRAPPERS:
+        for wfn in wrappers:
             wfn.launches = 0
 
     def read_counts(path_name, must):
-        counts = {wfn.__name__: wfn.launches for wfn in cuda_rns.WRAPPERS}
+        counts = {wfn.__name__: wfn.launches for wfn in wrappers}
         for name in must:
             if counts[name] < 1:
                 raise AssertionError(f"{name} was not launched on the "
@@ -495,7 +576,9 @@ def main() -> None:
                    ("Neg", lambda: pk.neg(a)),
                    ("MultConst", lambda: pk.mult_const(a, ks)),
                    ("MakeL2", lambda: pk.make_l2(a)),
-                   ("MultConstL2", lambda: pk.mult_const(prod, signs))):
+                   ("MultConstL2", lambda: pk.mult_const(prod, signs)),
+                   ("AddL2", lambda: pk.add(prod, b)),
+                   ("SubL2", lambda: pk.sub(prod, a))):
         ops[op] = (fn,) + timed(fn)
     t_dec1 = None
     for op, want in (("EncryptDeterministic", ms),
@@ -505,7 +588,9 @@ def main() -> None:
                      ("MultConst", [m * kk for m, kk in zip(ms, ks)]),
                      ("MakeL2", ms),
                      ("MultConstL2", [s * m * kk for s, m, kk
-                                      in zip(signs, ms, ks)])):
+                                      in zip(signs, ms, ks)]),
+                     ("AddL2", [m * kk + kk for m, kk in zip(ms, ks)]),
+                     ("SubL2", [m * kk - m for m, kk in zip(ms, ks)])):
         t = decrypt_all(sk, pk, tables, ops[op][1], want,
                         f"L1 path {op}", Bd)
         if op == "EncryptDeterministic":
@@ -563,7 +648,7 @@ def main() -> None:
     t_dec1_w = decrypt_all(sk2, pk2, tables2, add2,
                            [m + kk for m, kk in zip(ms2, ks2)],
                            "1024-bit Decrypt of Add (m+k)", Bw)
-    read_counts("1024-bit", MAIN_PATH + ("ladder_loop",))
+    launches_1024 = read_counts("1024-bit", MAIN_PATH + ("ladder_loop",))
     for op, n, t in (("Encrypt", Bw, t_enc_w), ("Mult", Bw, t_mult_w),
                      ("DecryptL2", Bw, t_dec2_w), ("Add", Bw, t_add_w),
                      ("Decrypt (L1)", Bw, t_dec1_w)):
@@ -571,13 +656,175 @@ def main() -> None:
     del pk2, sk2, tables2, a2, b2, prod2, add2
     phase_done("4c (1024-bit)")
 
+    # -- 4d. the limb path: every op of a non-deterministic key ----------
+    t0 = time.time()
+    pkr, skr = scheme.keygen(512, 1021, deterministic=False,
+                             rng=random.Random(args.seed), device="cuda")
+    tablesr = pkr.setup_decryption(skr, rng=random.Random(args.seed))
+    gkr = hm.GoldenKey(params=skr.a1_params, P=pkr.P_host, Q=pkr.Q_host,
+                       R=skr.r, msg_space=pkr.msg_space)
+    pr, nr = gkr.params.p, pkr.n
+    log(f"keys: 512-bit, msg space 1021, non-deterministic, "
+        f"{time.time() - t0:.1f} s")
+    nrng = random.Random(args.seed + 5)
+    msr = [nrng.randrange(340) for _ in range(B)]
+    ksr = [nrng.randrange(1, 4) for _ in range(B)]
+    sgr = [nrng.choice((-1, 1)) for _ in range(B)]
+    zero_counts()
+    # each op draws its r from random.Random(seed) (one per lane, in the
+    # JAX package's order), so a host check can replay them
+    seeded = {}
+
+    def run(name, seed, fn):
+        out, t = timed(lambda: fn(random.Random(seed)))
+        seeded[name] = (seed, fn, t)
+        return out
+
+    ar = run("Encrypt", 11, lambda g: pkr.encrypt(msr, rng=g))
+    br = run("Encrypt b", 12, lambda g: pkr.encrypt(ksr, rng=g))
+    prodr = run("Mult", 13, lambda g: pkr.mult(ar, br, rng=g))
+    prod2r = run("Mult b*b", 14, lambda g: pkr.mult(br, br, rng=g))
+    outs = {
+        "AddL2": run("AddL2", 15, lambda g: pkr.add(prodr, prod2r, rng=g)),
+        "SubL2": run("SubL2", 16, lambda g: pkr.sub(prodr, prod2r, rng=g)),
+        "Add": run("Add", 17, lambda g: pkr.add(ar, br, rng=g)),
+        "Sub": run("Sub", 18, lambda g: pkr.sub(ar, br, rng=g)),
+        "Neg": run("Neg", 19, lambda g: pkr.neg(ar, rng=g)),
+        "MultConst": run("MultConst", 20,
+                         lambda g: pkr.mult_const(ar, ksr, rng=g)),
+        "MultConst n-1": run("MultConst n-1", 21,
+                             lambda g: pkr.mult_const(ar, nr - 1, rng=g)),
+        "MultConstL2": run("MultConstL2", 22,
+                           lambda g: pkr.mult_const(prodr, sgr, rng=g)),
+    }
+    # encrypt_device: r from a seeded generator on the card
+    outs["EncryptDevice"] = run(
+        "EncryptDevice", 23, lambda g: pkr.encrypt_device(
+            msr, torch.Generator(device=dev).manual_seed(23)))
+    outs["Mult"] = prodr
+    wants = {
+        "Mult": [m * kk for m, kk in zip(msr, ksr)],
+        "AddL2": [m * kk + kk * kk for m, kk in zip(msr, ksr)],
+        "SubL2": [m * kk - kk * kk for m, kk in zip(msr, ksr)],
+        "Add": [m + kk for m, kk in zip(msr, ksr)],
+        "Sub": [m - kk for m, kk in zip(msr, ksr)],
+        "Neg": [-m for m in msr],
+        "MultConst": [m * kk for m, kk in zip(msr, ksr)],
+        "MultConst n-1": [-m for m in msr],
+        "MultConstL2": [s_ * m * kk for s_, m, kk in zip(sgr, msr, ksr)],
+        "EncryptDevice": msr,
+    }
+    t_decr = {}
+    for name, want in wants.items():
+        t_decr[name] = decrypt_all(skr, pkr, tablesr, outs[name], want,
+                                   f"limb path {name}", Bd)
+    launches_limb = read_counts("limb", LIMB_PATH)
+
+    # a few lanes against hostmath, the r of each op replayed
+    def rs_of(name):
+        g = random.Random(seeded[name][0])
+        return [g.randrange(nr) for _ in range(B)]
+
+    lanes_r = [0, B - 1]
+    ctxr = pkr.dev.ctx
+    ha = convert.affine_to_host(ctxr, ar[lanes_r].data)
+    hb = convert.affine_to_host(ctxr, br[lanes_r].data)
+    ra, rb = rs_of("Encrypt"), rs_of("Encrypt b")
+    for j, i in enumerate(lanes_r):
+        assert ha[j] == hm.golden_encrypt(gkr, msr[i], ra[i]), i
+        assert hb[j] == hm.golden_encrypt(gkr, ksr[i], rb[i]), i
+
+    def plus_q(pt, r):
+        return hm.ec_add(pt, hm.ec_mul(r, gkr.Q, pr), pr)
+
+    l1_host = {
+        "Add": lambda j: hm.ec_add(ha[j], hb[j], pr),
+        "Sub": lambda j: hm.ec_add(ha[j], hm.ec_neg(hb[j], pr), pr),
+        "Neg": lambda j: hm.ec_neg(ha[j], pr),
+        "MultConst": lambda j: hm.ec_mul(ksr[lanes_r[j]], ha[j], pr),
+        "MultConst n-1": lambda j: hm.ec_mul(nr - 1, ha[j], pr),
+    }
+    for name, fn in l1_host.items():
+        rr = rs_of(name)
+        got = convert.affine_to_host(ctxr, outs[name][lanes_r].data)
+        assert got == [plus_q(fn(j), rr[i]) for j, i in enumerate(lanes_r)], \
+            name
+    eqq = hm.tate_pairing(gkr.Q, gkr.Q, gkr.params)
+    hz = {nm: convert.fp2_to_host(ctxr, outs[nm][lanes_r].data)
+          for nm in ("Mult", "AddL2", "SubL2", "MultConstL2")}
+    hz2 = convert.fp2_to_host(ctxr, prod2r[lanes_r].data)
+    hz2_want = [hm.fp2_mul(hm.tate_pairing(u, u, gkr.params), hm.fp2_pow(
+        eqq, r, pr), pr) for u, r in zip(hb, [rs_of("Mult b*b")[i]
+                                             for i in lanes_r])]
+    assert hz2 == hz2_want
+    l2_host = {
+        "Mult": lambda j: hm.tate_pairing(ha[j], hb[j], gkr.params),
+        "AddL2": lambda j: hm.fp2_mul(hz["Mult"][j], hz2[j], pr),
+        "SubL2": lambda j: hm.fp2_mul(hz["Mult"][j],
+                                      hm.fp2_conj(hz2[j], pr), pr),
+        "MultConstL2": lambda j: (hz["Mult"][j] if sgr[lanes_r[j]] > 0
+                                  else hm.fp2_conj(hz["Mult"][j], pr)),
+    }
+    for name, fn in l2_host.items():
+        rr = rs_of(name)
+        assert hz[name] == [hm.fp2_mul(fn(j), hm.fp2_pow(eqq, rr[i], pr), pr)
+                            for j, i in enumerate(lanes_r)], name
+    rdev = lb.limbs_to_ints(rng_mod.device_random_below(
+        pkr._sampler_ctx, torch.Generator(device=dev).manual_seed(23),
+        (scheme._bucket(B),)))
+    got = convert.affine_to_host(ctxr, outs["EncryptDevice"][lanes_r].data)
+    assert got == [hm.golden_encrypt(gkr, msr[i], rdev[i]) for i in lanes_r]
+    log(f"limb path: lanes {lanes_r} equal the host oracle with the r of "
+        "each op replayed (Encrypt, Mult, AddL2, SubL2, MultConstL2, Add, "
+        "Sub, Neg, MultConst, MultConst n-1, EncryptDevice)")
+    for name, (seed, fn, t1) in seeded.items():
+        _, t2 = timed(lambda: fn(random.Random(seed)))
+        log(f"{name} (re-randomized) {B / t1:.1f} ops/s first call, "
+            f"{B / t2:.1f} ops/s second call (B={B}) [{card}]")
+    for name in ("Mult", "AddL2", "Add"):
+        log(f"Decrypt of limb-path {name} {Bd / t_decr[name]:.1f} ops/s "
+            f"(B={Bd}) [{card}]")
+    phase_done("4d (limb path, non-deterministic key)")
+
+    # -- 4e. a 2048-bit key: the S = 12 kernels ---------------------------
+    t0 = time.time()
+    pk3, sk3 = scheme.keygen(2048, 1021, rng=random.Random(args.seed),
+                             device="cuda")
+    tables3 = pk3.setup_decryption(sk3, rng=random.Random(args.seed))
+    k3 = pk3.dev.rns.k
+    log(f"keys: 2048-bit, msg space 1021, k = {k3} channels per base "
+        f"(S = {cuda_rns.slots_for(k3)}), L = {pk3.dev.ctx.L} limbs, "
+        f"{time.time() - t0:.1f} s (host)")
+    Bb = args.big_batch
+    kernel_checks(pk3, sk3, Bb, Bb, args.seed + 6, trunc=32)
+    brng = random.Random(args.seed + 7)
+    ms3 = [brng.randrange(340) for _ in range(Bb)]
+    ks3 = [brng.randrange(1, 4) for _ in range(Bb)]
+    zero_counts()
+    a3, t_enc3 = timed(lambda: pk3.encrypt(ms3, rng=brng))
+    b3, _ = timed(lambda: pk3.encrypt(ks3, rng=brng))
+    prod3, t_mult3 = timed(lambda: pk3.mult(a3, b3))
+    t_dec3 = decrypt_all(sk3, pk3, tables3, prod3,
+                         [m * kk for m, kk in zip(ms3, ks3)],
+                         "2048-bit DecryptL2 (m*k)", Bb)
+    launches_2048 = read_counts("2048-bit", MAIN_PATH)
+    for op, t in (("Encrypt", t_enc3), ("Mult", t_mult3),
+                  ("DecryptL2", t_dec3)):
+        log(f"2048-bit {op} {Bb / t:.2f} ops/s first call (B={Bb}) [{card}]")
+    del pk3, sk3, tables3, a3, b3, prod3
+    phase_done("4e (2048-bit)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
                       ("DecryptL2", lambda: sk.decrypt(prod[:Bd], pk, tables)),
                       ("Add", lambda: pk.add(a, b)),
                       ("Decrypt (L1)", lambda: sk.decrypt(ct1[:Bd], pk,
-                                                          tables))):
+                                                          tables)),
+                      ("Mult (re-randomized)",
+                       lambda: pkr.mult(ar, br, rng=random.Random(13))),
+                      ("L2 Add (re-randomized)",
+                       lambda: pkr.add(prodr, prod2r, rng=random.Random(15)))):
         profile_op(torch, label, fn, card)
     phase_done("5 (profile)")
 
@@ -589,9 +836,13 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"bgn_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": launches_main[name] + launches_l1[name],
+            "launches": (launches_main[name] + launches_l1[name]
+                         + launches_limb[name]),
             "launches_by_path": {"main": launches_main[name],
-                                 "l1": launches_l1[name]},
+                                 "l1": launches_l1[name],
+                                 "limb": launches_limb[name],
+                                 "1024": launches_1024[name],
+                                 "2048": launches_2048[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -20,14 +20,16 @@ def _pt(p):
 def port_public_key(pk, device="cpu"):
     """The port's BGNPublicKey built from the JAX key's arrays."""
     d = pk.dev
-    ctx = cj.mont_ctx(np.asarray(d.ctx.p), np.asarray(d.ctx.one),
-                      np.asarray(d.ctx.pm2_bits), d.ctx.p_host, device)
+    c = d.ctx
+    ctx = cj.mont_ctx(*(np.asarray(a) for a in (c.p, c.pinv, c.r2, c.one,
+                                                 c.pm2_bits, c.pp1d4_bits)),
+                      c.p_host, device)
     rns = cj.rns_ctx(rns_arrays(d.rns), d.rns.k, d.rns.h, d.rns.L, device)
     dev = cj.device_key(
         ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_naf),
-        np.asarray(d.l_bits),
+        np.asarray(d.l_bits), np.asarray(d.pair_qq),
         tuple(np.asarray(a) for a in d.p_win_rns[:2]),
-        tuple(np.asarray(a) for a in d.q_win_rns[:2]), device)
+        tuple(np.asarray(a) for a in d.q_win_rns[:2]), _pt(d.q_win), device)
     return cj.public_key(pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space,
                          pk.deterministic, pk.P_host, pk.Q_host, dev)
 

@@ -5,6 +5,7 @@ kernels' integer base extension (csrc/rns.cuh r_mul, emulated here in
 numpy over the same constant blob) equals the plain r_mul bit for bit.
 """
 import ast
+import math
 import random
 from pathlib import Path
 
@@ -48,9 +49,11 @@ def test_keygen_defaults_to_the_card():
 
 def _small_ctx(bits=80):
     rng = random.Random(3)
+    small = math.prod(trn._primes_desc(3, 2000))   # cheap sieve first
     while True:
         p = rng.getrandbits(bits) | (1 << (bits - 1)) | 1
-        if all(pow(a, p - 1, p) == 1 for a in (2, 3, 5, 7, 11, 13)):
+        if math.gcd(p, small) == 1 and \
+                all(pow(a, p - 1, p) == 1 for a in (2, 3, 5, 7, 11, 13)):
             return trn.make_rns_ctx(p, device="cpu")
 
 
@@ -106,7 +109,10 @@ def _emulated_kernel_r_mul(ctx, x, y):
     """csrc/rns.cuh r_mul, line for line, over the kernels' constant blob
     (numpy, all lanes at once): the narrow alpha (k <= 64) from the int
     weights, the wide one as a float64 sum against the fp32 reciprocals,
-    and the bias KC = _kc(k)."""
+    the bias KC = _kc(k), the matrices in the blob's layout for k (rows
+    per source above k = 96), and the extension sums in 32-bit arithmetic
+    (int32 up to k = 96, checked below 2^31; unsigned above, mod 2^32,
+    checked exact)."""
     k = ctx.k
     wide = k > trn._K_NARROW
     KC = trn._kc(k)
@@ -129,8 +135,23 @@ def _emulated_kernel_r_mul(ctx, x, y):
         return np.where(r >= mm, r - mm, r)
 
     x, y = x.numpy(), y.numpy()
-    mat1 = ints("mat1", k * rs).reshape(k, rs)[:, :k]       # [dst j, src i]
-    mat2 = ints("mat2", k * rs).reshape(k, rs)[:, :k]       # [dst i, src j]
+    if k > cuda_rns.K_SMEM_MAX:                             # [src, dst ch]
+        mat1 = ints("mat1", k * rs).reshape(k, rs)[:, k:2 * k].T
+        mat2 = ints("mat2", k * rs).reshape(k, rs)[:, :k].T
+    else:
+        mat1 = ints("mat1", k * rs).reshape(k, rs)[:, :k]   # [dst j, src i]
+        mat2 = ints("mat2", k * rs).reshape(k, rs)[:, :k]   # [dst i, src j]
+
+    def u32_mod(acc, bias, alpha, base_mod, mm):
+        """(acc + bias - alpha * base_mod) mod 2^32, then mod m: the
+        kernel's 32-bit sum, exact while the true value is in range."""
+        true = acc + bias - alpha.astype(np.int64) * base_mod
+        top = 2 ** 31 if k <= cuda_rns.K_SMEM_MAX else 2 ** 32
+        assert true.min() >= 0 and true.max() < top
+        wrapped = (acc % 2 ** 32 + bias - alpha.astype(np.int64) * base_mod
+                   ) % 2 ** 32
+        assert np.array_equal(wrapped, true)
+        return wrapped % mm
     d = red((x * y).astype(np.float32), m, recip)
     qh = red((d[:k] * fld("qc_a", k)).astype(np.float32), m[:k], recip[:k])
     qh = qh.astype(np.int64)
@@ -142,9 +163,8 @@ def _emulated_kernel_r_mul(ctx, x, y):
 
     a1 = alpha(qh, ints("w1a", k), recip[:k], -0.4)
     mB = m[k:].astype(np.int64)
-    T = mat1 @ qh + KC * mB - a1.astype(np.int64) * \
-        fld("p_mod_b", k).astype(np.int64)
-    qpa = (T % mB).astype(np.float32)
+    qpa = u32_mod(mat1 @ qh, KC * mB, a1, fld("p_mod_b", k).astype(np.int64),
+                  mB).astype(np.float32)
     u = red((d[k:] * fld("ainv_b", k)).astype(np.float32), m[k:],
             recip[k:]) + qpa
     r = np.where(u >= m[k:], u - m[k:], u)
@@ -152,21 +172,25 @@ def _emulated_kernel_r_mul(ctx, x, y):
              recip[k:]).astype(np.int64)
     a2 = alpha(rh, ints("w2a", k), recip[k:], 0.5)
     mA = m[:k].astype(np.int64)
-    assert int((mat2 @ rh).max()) + KC * 4093 < 2 ** 31      # int32 range
-    T2 = mat2 @ rh + KC * mA - a2.astype(np.int64) * \
-        fld("b_mod_a", k).astype(np.int64)
-    return np.concatenate([(T2 % mA).astype(np.float32), r], axis=0)
+    ra = u32_mod(mat2 @ rh, KC * mA, a2, fld("b_mod_a", k).astype(np.int64),
+                 mA)
+    return np.concatenate([ra.astype(np.float32), r], axis=0)
 
 
-@pytest.mark.parametrize("bits", [80, 515, 800, 1036])
+@pytest.mark.parametrize("bits", [80, 515, 800, 1036, 2070])
 def test_kernel_integer_extension_matches_plain_r_mul(bits):
-    """The kernels compute each base extension as an exact int32 dot
-    product and an integer mod; that is the canonical residue of the same
-    integer the plain version reduces, so raw residues agree bit for bit
-    (p of 80 bits; 515 bits: k = 45, the 512-bit key's layout; 800 and
-    1036 bits: the wide path, k = 69 and k = 90, the 1024-bit key's)."""
+    """The kernels compute each base extension as an exact unsigned 32-bit
+    dot product and an integer mod; that is the canonical residue of the
+    same integer the plain version reduces, so raw residues agree bit for
+    bit (p of 80 bits; 515 bits: k = 45, the 512-bit key's layout; 800 and
+    1036 bits: the wide path, k = 69 and k = 90, the 1024-bit key's;
+    2070 bits: k = 185, the 2048-bit key's, S = 12 with the matrices in
+    device memory, where a signed int32 sum would overflow)."""
     ctx = _small_ctx(bits)
-    assert cuda_rns.slots_for(ctx.k) == (4 if ctx.k <= 64 else 6)
+    k = ctx.k
+    assert cuda_rns.slots_for(k) == (4 if k <= 64 else 6 if k <= 96 else 12)
+    if bits == 2070:
+        assert k == 185 and k * 4092 ** 2 > 2 ** 31
     x, y = _residues(ctx, 64, 7), _residues(ctx, 64, 8)
     got = _emulated_kernel_r_mul(ctx, x, y)
     want = trn.r_mul(ctx, trn.RVal(x, 3), trn.RVal(y, 3)).v.numpy()

@@ -38,14 +38,18 @@ def test_keygen_matches_jax(port_key, shared_keypair):
                                                  jsk.r)
     assert (pk.P_host, pk.Q_host) == (jpk.P_host, jpk.Q_host)
     d, jd = pk.dev, jpk.dev
-    for name in ("p", "one", "pm2_bits"):
+    for name in ("p", "r2", "one", "pm2_bits", "pp1d4_bits"):
         np.testing.assert_array_equal(_u32(getattr(d.ctx, name)),
                                       np.asarray(getattr(jd.ctx, name)))
+    assert d.ctx.pinv == int(jd.ctx.pinv)
+    np.testing.assert_array_equal(_u32(d.pair_qq), np.asarray(jd.pair_qq))
     for f in ("x", "y", "inf"):
         np.testing.assert_array_equal(_u32(getattr(d.P, f)),
                                       np.asarray(getattr(jd.P, f)))
         np.testing.assert_array_equal(_u32(getattr(d.Q, f)),
                                       np.asarray(getattr(jd.Q, f)))
+        np.testing.assert_array_equal(_u32(getattr(d.q_tab, f)),
+                                      np.asarray(getattr(jd.q_win, f)))
     np.testing.assert_array_equal(d.n_naf.numpy(), np.asarray(jd.n_naf))
     np.testing.assert_array_equal(d.l_bits.numpy(), np.asarray(jd.l_bits))
     np.testing.assert_array_equal(sk.q1_naf, np.asarray(jsk.q1_naf))
@@ -75,6 +79,7 @@ def test_carry_across_equals_own_key(port_key, shared_keypair):
     assert (carried.dev.rns.k, carried.dev.rns.h, carried.dev.rns.L) == \
         (pk.dev.rns.k, pk.dev.rns.h, pk.dev.rns.L)
     assert carried.dev.ctx.p_host == pk.dev.ctx.p_host
+    assert carried.dev.ctx.pinv == pk.dev.ctx.pinv
     own_t, got_t = tables.state_dict(), port_tables(jtables).state_dict()
     assert own_t.keys() == got_t.keys()
     for name in own_t:

@@ -10,8 +10,6 @@ that each JAX kernel compiles once (MakeL2 is held to the host pairing
 only: test_torch_scheme.py holds the same pairing against the JAX
 package's Mult).  Everything runs on the CPU.
 """
-import copy
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,26 +164,3 @@ def test_decrypt_l1_matches_hostmath(keys):
     assert list(sk.decrypt(pk.mult_const(a, [2, 0, -3, 1, 4, -1, 0, 2]),
                            pk, tables)) == [0, 0, -21, -5, 120, 500, 0, 26]
 
-
-def test_slice3_ops_raise(keys):
-    """L2 Add/Sub (also of mixed levels), a non-deterministic key, and an
-    L1 MultConst exponent too wide for the incomplete RNS ladder need the
-    limb product of slice 3: each raises NotImplementedError."""
-    pk = keys[3]
-    a = pk.encrypt_deterministic([1, 2])
-    l2 = pk.make_l2(a)
-    for op in (pk.add, pk.sub):
-        for x, y in ((l2, l2), (a, l2), (l2, a)):
-            with pytest.raises(NotImplementedError, match="slice 3"):
-                op(x, y)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        pk.neg(l2)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        pk.mult_const(a, pk.n - 1)
-    rand = copy.copy(pk)
-    rand.deterministic = False
-    for call in (lambda: rand.add(a, a), lambda: rand.sub(a, a),
-                 lambda: rand.neg(a), lambda: rand.mult_const(a, 2),
-                 lambda: rand.mult(a, a)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            call()
