@@ -43,6 +43,12 @@ _SIGNATURES = {
     "bgn_window_ladder_tab": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                               _I, _P],
     "bgn_window_ladder": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    "bgn_dbl_step": [_P, _I, _I] + [_P] * 12 + [_I, _P],
+    "bgn_add_step": [_P, _I, _I] + [_P] * 14 + [_I, _P],
+    "bgn_pt_dbl": [_P, _I, _I] + [_P] * 6 + [_I, _P],
+    "bgn_pt_add": [_P, _I, _I] + [_P] * 8 + [_I, _P],
+    "bgn_pow_step": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
+    "bgn_fp2_pow_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 
 # what the last build did: seconds, and nvcc's -Xptxas -v report

@@ -1,0 +1,138 @@
+"""One dataclass for the scheme and kernel knobs: the port's counterpart of
+`bgn_tpu/config.py` (`BGNParams`, the JAX package's primary interface).
+
+The fields, defaults, validation and (de)serialization are the JAX
+package's, so a `BGNParams.to_dict()` written by either package loads in
+the other.  Unlike the JAX package, the port reads no environment
+variable: `apply_kernel_modes` is the only way to change a kernel mode.
+
+Usage:
+    params = BGNParams(key_bits=512, msg_space=1021, rns_pallas="1")
+    pk, sk = params.keygen(rng)        # applies the kernel modes first
+
+Kernel modes the port runs (each field's None keeps the default):
+  rns_pallas   "loop" (the default: each ladder, Miller loop, window
+               chain and exponentiation as one kernel) or "1" (one kernel
+               launch per step: ops/rns_pairing.py).
+  rns_miller   "auto" or "1": the RNS pairing, the port's only one.
+  pallas       True: the limb product as its CUDA kernel, the port's only
+               form.
+Every other value raises, for the reason given in ROADMAP.md (queue 3
+for the modes that are not ported; queue 1 for the digit-domain
+pairing's slice).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+# rns_pallas values of the JAX package that the port refuses, and why
+_INTERPRET = ("a JAX interpreter mode; the port's counterpart is "
+              "device=\"cpu\", where every wrapper runs its plain version")
+_REFUSED_RNS_PALLAS = {
+    "0": "the pure-XLA steps would be the plain PyTorch versions on CUDA "
+         "tensors, which the port never runs there",
+    "interpret": _INTERPRET,
+    "loop-interpret": _INTERPRET,
+}
+_DIGIT_DOMAIN = ("the digit-domain pairing (bgn_tpu/ops/pairing.py "
+                 "miller_loop_fused, TPU kernels 16-17) is not ported yet: "
+                 "ROADMAP.md queue 1, the slice after the per-step kernels")
+
+
+@dataclasses.dataclass
+class BGNParams:
+    """Everything configurable, in one place.
+
+    Scheme fields mirror NewKeyGen(keyBits, msgSpace, polyBase,
+    fpScaleBase, fpPrecision, deterministic) (reference bgn.go:65) and
+    default to the reference's test constants (bgn_test.go:8-13)."""
+
+    # -- scheme (reference NewKeyGen args + PolyEncodingParams) ----------
+    key_bits: int = 512
+    msg_space: int = 1021
+    poly_base: int = 3
+    fp_scale_base: int = 3
+    fp_precision: float = 0.0001
+    deterministic: bool = True
+
+    # -- mesh / sharding (the port runs one device so far) --------------
+    n_devices: Optional[int] = None
+    mesh_axis: str = "data"
+
+    # -- kernel-mode knobs (None = library default) ----------------------
+    rns_miller: Optional[str] = None    # "auto" | "1"
+    rns_pallas: Optional[str] = None    # "loop" | "1"
+    fused_miller: Optional[bool] = None  # digit-domain Miller steps
+    pallas: Optional[bool] = None        # the limb product's kernel
+
+    def __post_init__(self):
+        if self.key_bits < 16 or self.key_bits % 2:
+            raise ValueError("key_bits must be an even int >= 16")
+        if self.msg_space < 2:
+            raise ValueError("msg_space must be >= 2")
+
+    # -- construction -----------------------------------------------------
+
+    def keygen(self, rng=None, device="cuda"):
+        """Generate a key pair under this configuration on `device`
+        (applies the kernel-mode knobs first)."""
+        from . import scheme
+        self.apply_kernel_modes()
+        return scheme.keygen(self.key_bits, self.msg_space, self.poly_base,
+                             self.fp_scale_base, self.fp_precision,
+                             self.deterministic, rng=rng, device=device)
+
+    def make_mesh(self):
+        """The JAX package's 1-D device mesh; the port has no multi-device
+        path yet."""
+        raise NotImplementedError(
+            "multi-device runs are not ported yet: ROADMAP.md queue 1, "
+            "item 6 (parallel)")
+
+    def apply_kernel_modes(self) -> None:
+        """Check every kernel-mode field, then set the port's kernel
+        granularity from rns_pallas; unset fields leave the defaults."""
+        if self.rns_pallas is not None and self.rns_pallas not in ("loop",
+                                                                   "1"):
+            why = _REFUSED_RNS_PALLAS.get(
+                self.rns_pallas, "unknown value (\"loop\" or \"1\")")
+            raise ValueError(f"rns_pallas={self.rns_pallas!r}: {why}")
+        if self.rns_miller == "0":
+            raise NotImplementedError(f"rns_miller='0': {_DIGIT_DOMAIN}")
+        if self.rns_miller not in (None, "auto", "1"):
+            raise ValueError(f"rns_miller={self.rns_miller!r}: unknown "
+                             "value (\"auto\", \"1\" or \"0\")")
+        if self.fused_miller is not None:
+            raise NotImplementedError(
+                f"fused_miller={self.fused_miller!r} selects a form of "
+                f"{_DIGIT_DOMAIN}")
+        if self.pallas is False:
+            raise NotImplementedError(
+                "pallas=False: the XLA limb product would be the plain "
+                "PyTorch version on CUDA tensors, as rns_pallas='0' would; "
+                "not ported (ROADMAP.md queue 3)")
+        if self.rns_pallas is not None:
+            from .ops import rns_pairing as rp
+            rp._PALLAS_MODE = self.rns_pallas
+
+    # -- (de)serialization ------------------------------------------------
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "BGNParams":
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - names
+        if unknown:
+            raise ValueError(f"unknown BGNParams fields: {sorted(unknown)}")
+        return cls(**d)
+
+    @classmethod
+    def reference_test_config(cls) -> "BGNParams":
+        """The reference's shared test constants (bgn_test.go:8-13)."""
+        return cls(key_bits=512, msg_space=1021, poly_base=3,
+                   fp_scale_base=3, fp_precision=0.0001,
+                   deterministic=True)

@@ -1,5 +1,6 @@
 // RNS field and curve arithmetic as CUDA device functions: the library
-// that every loop kernel of bgn_torch runs, the counterpart of
+// that every RNS kernel of bgn_torch runs (a loop kernel calls the steps
+// in a loop, a step kernel once), the counterpart of
 // bgn_tpu/fieldcore/rns.py (_red, r_mul, r_add, r_sub) and the step
 // functions of bgn_tpu/ops/rns_pairing.py (_dbl_step, _add_step, _dbl_pt,
 // _add_pt, _fp2_mul, _fp2_sqr) and pallas_rns.py (_jac_add_full).

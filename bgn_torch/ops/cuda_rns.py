@@ -1,12 +1,19 @@
-"""The seven RNS loop kernels of the port's paths, their wrappers and
-their plain PyTorch versions.
+"""The RNS kernels of the port's paths (seven loop kernels and six step
+kernels), their wrappers and their plain PyTorch versions.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
-the plain version (the same step functions of ops/rns_pairing.py under
-Python loops, the counterpart of the JAX package's XLA path); a CUDA
-tensor launches the hand-written kernel in `bgn_torch/csrc/` or raises.
-Every wrapper counts its kernel launches in a plain integer attribute
-`launches`; only a launch adds to it.
+the plain version (the step functions of ops/rns_pairing.py, under Python
+loops for a loop kernel: the counterpart of the JAX package's XLA path); a
+CUDA tensor launches the hand-written kernel in `bgn_torch/csrc/` or
+raises.  Every wrapper counts its kernel launches in a plain integer
+attribute `launches`; only a launch adds to it.
+
+A loop kernel runs a whole ladder, Miller loop or exponentiation; the
+per-step configuration (config.BGNParams(rns_pallas="1")) runs the same
+host loops (_miller_chain, _pow_chain, _fp2_chain, _ladder_chain,
+_window_chain) with one step-kernel launch per step.  The plain version
+of a loop kernel is that loop over the step kernels' plain versions, so
+both configurations compute the same residues bit for bit.
 
 Kernels (TPU kernel replaced -> CUDA source):
   miller_loop   bgn_tpu/ops/pallas_rns.py:miller_loop_whole_pallas
@@ -24,13 +31,21 @@ Kernels (TPU kernel replaced -> CUDA source):
                 -> csrc/window_ladder_tab.cu
   window_ladder bgn_tpu/ops/pallas_rns.py:window_ladder_pallas
                 -> csrc/window_ladder.cu
+  dbl_step      bgn_tpu/ops/pallas_rns.py:dbl_step_pallas -> csrc/dbl_step.cu
+  add_step      bgn_tpu/ops/pallas_rns.py:add_step_pallas -> csrc/add_step.cu
+  pt_dbl        bgn_tpu/ops/pallas_rns.py:pt_dbl_pallas -> csrc/pt_dbl.cu
+  pt_add        bgn_tpu/ops/pallas_rns.py:pt_add_pallas -> csrc/pt_add.cu
+  pow_step      bgn_tpu/ops/pallas_rns.py:pow_step_pallas -> csrc/pow_step.cu
+  fp2_pow_step  bgn_tpu/ops/pallas_rns.py:fp2_pow_step_pallas
+                -> csrc/fp2_pow_step.cu
 
 Every kernel is built for three slot counts S (channels per thread): S = 4
 for k <= 64 channels per base, S = 6 for k <= 96, which covers 1024-bit
 keys (k = 90), and S = 12 for k <= 192, which covers 2048-bit keys
 (k = 184 to 186); `slots_for` picks S from k, and a wrapper raises
 ValueError for a CUDA tensor with k > 192.  They run one warp per lane
-with the loop state in registers, the RNS constants in shared memory (the
+with the loop state in registers (a step kernel loads it from device
+memory and stores it back), the RNS constants in shared memory (the
 two extension matrices in device memory above k = 96), and compute the
 base extensions as exact 32-bit integer dot products; csrc/rns.cuh says
 what bounds them and why.  They agree with the plain versions bit for
@@ -194,25 +209,37 @@ def _digits_host(digits) -> list:
 # ---------------------------------------------------------------------------
 
 
-def miller_loop_plain(rns: RNSCtx, ax, ay, xb, yb, digits):
+def _one(rns: RNSCtx, x):
+    """The Montgomery one in every lane of x's shape, as its own tensor
+    (a step kernel takes contiguous inputs)."""
+    return rns.one_rns.expand_as(x).contiguous()
+
+
+def _miller_chain(rns: RNSCtx, ax, ay, xb, yb, digits, dbl, add):
     """f_{n,A}(phi(B)) over shared MSB-first digits (plain bits or signed
     NAF, first nonzero digit +1): a doubling step every step, a +-A
     addition step on nonzero digits, the final addition elided, leading
-    zeros skipped.  Returns (fr, fi) residues, bound 9."""
+    zeros skipped (the host form of the JAX package's `started` scan and
+    its tail).  dbl, add: the step functions (plain versions or
+    wrappers).  Returns (fr, fi) residues, bound 9."""
     d = _digits_host(digits)
     nsteps = len(d)
     start = next((i for i, v in enumerate(d) if v != 0), 0)
     nay = rp._neg_coord(rns, ay)
-    one = rns.one_rns.expand_as(ax)
+    one = _one(rns, ax)
     X, Y, Z, fr, fi = ax, ay, one, one, torch.zeros_like(ax)
-    xb_, yb_ = rp._pt(xb), rp._pt(yb)
     for i in range(start + 1, nsteps):
-        X, Y, Z, fr, fi = rp._dbl_step(rns, X, Y, Z, fr, fi, xb_, yb_)
+        X, Y, Z, fr, fi = dbl(rns, X, Y, Z, fr, fi, xb, yb)
         if i < nsteps - 1 and d[i] != 0:
-            yv = ay if d[i] > 0 else nay
-            X, Y, Z, fr, fi = rp._add_step(rns, X, Y, Z, fr, fi, rp._pt(ax),
-                                           rp._pt(yv), xb_, yb_)
+            X, Y, Z, fr, fi = add(rns, X, Y, Z, fr, fi, ax,
+                                  ay if d[i] > 0 else nay, xb, yb)
     return fr, fi
+
+
+def miller_loop_plain(rns: RNSCtx, ax, ay, xb, yb, digits):
+    """The Miller loop as _miller_chain over the plain steps."""
+    return _miller_chain(rns, ax, ay, xb, yb, digits, dbl_step_plain,
+                         add_step_plain)
 
 
 def miller_loop(rns: RNSCtx, ax, ay, xb, yb, digits):
@@ -240,15 +267,18 @@ miller_loop.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def pow_loop_plain(rns: RNSCtx, x, bits):
-    """x^e in F_p by square-and-multiply over shared MSB-first bits;
-    x bound <= 16; result bound 3."""
-    acc = rns.one_rns.expand_as(x)
+def _pow_chain(rns: RNSCtx, x, bits, step):
+    """x^e in F_p by square-and-multiply over shared MSB-first bits, one
+    step(rns, acc, x, bit) per bit; x bound <= 16; result bound 3."""
+    acc = _one(rns, x)
     for b in _digits_host(bits):
-        acc = rn.r_mul(rns, RVal(acc, 3), RVal(acc, 3)).v
-        if b:
-            acc = rn.r_mul(rns, RVal(acc, 3), RVal(x, 16)).v
+        acc = step(rns, acc, x, int(b > 0))
     return acc
+
+
+def pow_loop_plain(rns: RNSCtx, x, bits):
+    """The F_p power as _pow_chain over the plain step."""
+    return _pow_chain(rns, x, bits, pow_step_plain)
 
 
 def pow_loop(rns: RNSCtx, x, bits):
@@ -280,20 +310,21 @@ def _conj_im(rns: RNSCtx, xi):
     return torch.where(t < 0, t + rns.m, t)
 
 
-def fp2_pow_loop_plain(rns: RNSCtx, xr, xi, digits):
-    """(xr + xi*i)^e in F_p^2 over shared MSB-first digits; a negative
-    digit multiplies by conj(x) (x unitary).  Result bound (9, 9)."""
+def _fp2_chain(rns: RNSCtx, xr, xi, digits, step):
+    """(xr + xi*i)^e in F_p^2 over shared MSB-first digits, one
+    step(rns, ar, ai, xr, xi, bit) per digit: a square, then a product
+    with x on +1, with conj(x) = (xr, 10p - xi) on -1 (x unitary; JAX's
+    switch picks nxi there).  Result bound (9, 9)."""
     nxi = _conj_im(rns, xi)
-    ar = rns.one_rns.expand_as(xr)
-    ai = torch.zeros_like(xr)
+    ar, ai = _one(rns, xr), torch.zeros_like(xr)
     for d in _digits_host(digits):
-        sq = rp._fp2_sqr(rns, (RVal(ar, 9), RVal(ai, 9)))
-        ar, ai = sq[0].v, sq[1].v
-        if d != 0:
-            mu = rp._fp2_mul(rns, (RVal(ar, 9), RVal(ai, 9)),
-                             (RVal(xr, 9), RVal(xi if d > 0 else nxi, 10)))
-            ar, ai = mu[0].v, mu[1].v
+        ar, ai = step(rns, ar, ai, xr, nxi if d < 0 else xi, int(d != 0))
     return ar, ai
+
+
+def fp2_pow_loop_plain(rns: RNSCtx, xr, xi, digits):
+    """The F_p^2 power as _fp2_chain over the plain step."""
+    return _fp2_chain(rns, xr, xi, digits, fp2_pow_step_plain)
 
 
 def fp2_pow_loop(rns: RNSCtx, xr, xi, digits):
@@ -348,20 +379,21 @@ def _gather_rows(tab, digits):
     return tx[j, d].transpose(1, 2), ty[j, d].transpose(1, 2)
 
 
-def _window_chain(rns: RNSCtx, gx, gy, live):
+def _window_chain(rns: RNSCtx, gx, gy, live, add):
     """LSB-first fixed-base window chain over gathered rows (gx, gy
     [Jd, 2k, N], live [Jd, N] bool): the first live window sets the
-    accumulator to its row (Z = 1), a later one adds it (_add_pt, computed
-    for every lane and selected, as the TPU kernels do).  Returns
-    (X, Y, Z, started); a lane never started keeps X = Y = 0, Z = 1."""
+    accumulator to its row (Z = 1), a later one adds it (add(rns, X, Y, Z,
+    rx, ry), computed for every lane and selected, as the TPU kernels do).
+    Returns (X, Y, Z, started); a lane never started keeps X = Y = 0,
+    Z = 1."""
     Jd, ch, n = gx.shape
-    one = rns.one_rns.expand(ch, n)
+    one = rns.one_rns.expand(ch, n).contiguous()
     X = Y = torch.zeros((ch, n), dtype=torch.float32, device=one.device)
     Z = one
     st = torch.zeros((n,), dtype=torch.bool, device=one.device)
     for j in range(Jd):
         rx, ry, lv = gx[j], gy[j], live[j]
-        aX, aY, aZ = rp._add_pt(rns, X, Y, Z, rp._pt(rx), rp._pt(ry))
+        aX, aY, aZ = add(rns, X, Y, Z, rx, ry)
         init, upd = (lv & ~st)[None], (lv & st)[None]
         X = torch.where(init, rx, torch.where(upd, aX, X))
         Y = torch.where(init, ry, torch.where(upd, aY, Y))
@@ -401,9 +433,9 @@ def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     {0,1}.  Returns (X, Y, Z) [2k, N]; Z = 0 encodes the identity."""
     digits = torch.as_tensor(digits).to(torch.int64)
     X1, Y1, Z1, st1 = _window_chain(rns, *_gather_rows(p_tab, digits[:Jm]),
-                                    digits[:Jm] != 0)
+                                    digits[:Jm] != 0, pt_add_plain)
     X2, Y2, Z2, st2 = _window_chain(rns, *_gather_rows(q_tab, digits[Jm:]),
-                                    digits[Jm:] != 0)
+                                    digits[Jm:] != 0, pt_add_plain)
     negY = rns.kp[:, 27:28] - Y1                    # 27p - y, bound 27
     negY = torch.where(negY < 0, negY + rns.m, negY)
     Y1 = torch.where(m_neg.to(torch.bool)[None], negY, Y1)
@@ -448,19 +480,25 @@ dual_ladder.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def ladder_loop_plain(rns: RNSCtx, X, Y, Z, ax, ay, digits):
+def _ladder_chain(rns: RNSCtx, X, Y, Z, ax, ay, digits, dbl, add):
     """base^e in G1 from the start state (X, Y, Z) over shared MSB-first
     digits (plain bits or signed NAF), every digit consumed: a doubling
-    (_dbl_pt) per digit, then + A on +1, + (-A) on -1 (_add_pt).  ax, ay:
-    the affine base, bound 3.  Returns (X, Y, Z), bounds (27, 27, 6); a
-    final V == -A gives Z = 0, the identity."""
+    dbl(rns, X, Y, Z) per digit, then add(rns, X, Y, Z, ax, ay) with A on
+    +1, with -A on -1.  ax, ay: the affine base, bound 3.  Returns
+    (X, Y, Z), bounds (27, 27, 6); a final V == -A gives Z = 0, the
+    identity."""
     nay = rp._neg_coord(rns, ay)
     for d in _digits_host(digits):
-        X, Y, Z = rp._dbl_pt(rns, X, Y, Z)
+        X, Y, Z = dbl(rns, X, Y, Z)
         if d != 0:
-            X, Y, Z = rp._add_pt(rns, X, Y, Z, rp._pt(ax),
-                                 rp._pt(ay if d > 0 else nay))
+            X, Y, Z = add(rns, X, Y, Z, ax, ay if d > 0 else nay)
     return X, Y, Z
+
+
+def ladder_loop_plain(rns: RNSCtx, X, Y, Z, ax, ay, digits):
+    """The G1 ladder as _ladder_chain over the plain steps."""
+    return _ladder_chain(rns, X, Y, Z, ax, ay, digits, pt_dbl_plain,
+                         pt_add_plain)
 
 
 def ladder_loop(rns: RNSCtx, X, Y, Z, ax, ay, digits):
@@ -493,7 +531,8 @@ def window_ladder_plain(rns: RNSCtx, gx, gy, ginf):
     the JAX package's fixed_base_mul_rns): gx, gy [Jd, 2k, N] rows (bound
     3), ginf [Jd, N] nonzero where the row is the identity.  Returns
     (X, Y, Z); a lane with no live window gets X = Y = Z = 0."""
-    X, Y, Z, st = _window_chain(rns, gx, gy, torch.as_tensor(ginf) == 0)
+    X, Y, Z, st = _window_chain(rns, gx, gy, torch.as_tensor(ginf) == 0,
+                                pt_add_plain)
     return X, Y, torch.where(st[None], Z, torch.zeros_like(Z))
 
 
@@ -562,5 +601,135 @@ def window_ladder(rns: RNSCtx, gx, gy, ginf):
 
 window_ladder.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# 8-13. Step kernels (the per-step configuration, rns_pallas="1"): one
+# launch per step of the host loops above.  The step is a plain int
+# argument (the host loops run over host digits, so no step syncs), and
+# every output is a fresh tensor, as the TPU kernels' are.
+# ---------------------------------------------------------------------------
+
+
+def _step_launch(wrapper, entry: str, rns: RNSCtx, ins, n_out: int,
+                 *scalars):
+    """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n)."""
+    n = _check_state(rns, *ins)
+    outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
+    if n:
+        _launch(entry, _ptr(const_blob(rns)), rns.k, slots_for(rns.k),
+                *(_ptr(t) for t in ins), *scalars,
+                *(_ptr(t) for t in outs), n)
+        wrapper.launches += 1
+    return outs
+
+
+def dbl_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
+    """One Miller doubling step (rns_pairing._dbl_step) on raw residues;
+    xb, yb bound 3.  Returns (X, Y, Z, fr, fi), bounds (27, 27, 6, 9, 9)."""
+    return rp._dbl_step(rns, X, Y, Z, fr, fi, rp._pt(xb), rp._pt(yb))
+
+
+def dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
+    """Wrapper: one Miller doubling step as one kernel on the card; every
+    argument [2k, N]."""
+    if _is_cpu(X):
+        return dbl_step_plain(rns, X, Y, Z, fr, fi, xb, yb)
+    return _step_launch(dbl_step, "bgn_dbl_step", rns,
+                        (X, Y, Z, fr, fi, xb, yb), 5)
+
+
+dbl_step.launches = 0
+
+
+def add_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
+    """One Miller addition step V + A (rns_pairing._add_step) on raw
+    residues; ax, ay, xb, yb bound 3.  Returns (X, Y, Z, fr, fi)."""
+    return rp._add_step(rns, X, Y, Z, fr, fi, rp._pt(ax), rp._pt(ay),
+                        rp._pt(xb), rp._pt(yb))
+
+
+def add_step(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
+    """Wrapper: one Miller addition step as one kernel on the card."""
+    if _is_cpu(X):
+        return add_step_plain(rns, X, Y, Z, fr, fi, ax, ay, xb, yb)
+    return _step_launch(add_step, "bgn_add_step", rns,
+                        (X, Y, Z, fr, fi, ax, ay, xb, yb), 5)
+
+
+add_step.launches = 0
+
+
+def pt_dbl_plain(rns: RNSCtx, X, Y, Z):
+    """One Jacobian doubling (rns_pairing._dbl_pt); bounds (27, 27, 6)."""
+    return rp._dbl_pt(rns, X, Y, Z)
+
+
+def pt_dbl(rns: RNSCtx, X, Y, Z):
+    """Wrapper: one Jacobian doubling as one kernel on the card."""
+    if _is_cpu(X):
+        return pt_dbl_plain(rns, X, Y, Z)
+    return _step_launch(pt_dbl, "bgn_pt_dbl", rns, (X, Y, Z), 3)
+
+
+pt_dbl.launches = 0
+
+
+def pt_add_plain(rns: RNSCtx, X, Y, Z, ax, ay):
+    """One incomplete mixed addition V + A (rns_pairing._add_pt); ax, ay
+    bound 3."""
+    return rp._add_pt(rns, X, Y, Z, rp._pt(ax), rp._pt(ay))
+
+
+def pt_add(rns: RNSCtx, X, Y, Z, ax, ay):
+    """Wrapper: one mixed addition as one kernel on the card."""
+    if _is_cpu(X):
+        return pt_add_plain(rns, X, Y, Z, ax, ay)
+    return _step_launch(pt_add, "bgn_pt_add", rns, (X, Y, Z, ax, ay), 3)
+
+
+pt_add.launches = 0
+
+
+def pow_step_plain(rns: RNSCtx, acc, x, bit: int):
+    """acc^2 * x^bit in F_p (acc bound 3, x bound <= 16): the two r_muls
+    of the square-and-multiply body; result bound 3."""
+    sq = rn.r_mul(rns, RVal(acc, 3), RVal(acc, 3))
+    return rn.r_mul(rns, sq, RVal(x, 16)).v if bit > 0 else sq.v
+
+
+def pow_step(rns: RNSCtx, acc, x, bit: int):
+    """Wrapper: one F_p square-and-multiply step as one kernel on the
+    card; acc, x [2k, N], bit a host int."""
+    if _is_cpu(acc):
+        return pow_step_plain(rns, acc, x, bit)
+    return _step_launch(pow_step, "bgn_pow_step", rns, (acc, x), 1,
+                        int(bit))[0]
+
+
+pow_step.launches = 0
+
+
+def fp2_pow_step_plain(rns: RNSCtx, ar, ai, xr, xi, bit: int):
+    """(ar + ai i)^2 * (xr + xi i)^bit in F_p^2: rns_pairing._fp2_sqr,
+    then _fp2_mul on a 1 bit.  Bounds: acc (9, 9), xr 9, xi 10; result
+    (9, 9)."""
+    sq = rp._fp2_sqr(rns, (RVal(ar, 9), RVal(ai, 9)))
+    if bit > 0:
+        sq = rp._fp2_mul(rns, sq, (RVal(xr, 9), RVal(xi, 10)))
+    return sq[0].v, sq[1].v
+
+
+def fp2_pow_step(rns: RNSCtx, ar, ai, xr, xi, bit: int):
+    """Wrapper: one F_p^2 square-and-multiply step as one kernel on the
+    card; ar, ai, xr, xi [2k, N], bit a host int."""
+    if _is_cpu(ar):
+        return fp2_pow_step_plain(rns, ar, ai, xr, xi, bit)
+    return _step_launch(fp2_pow_step, "bgn_fp2_pow_step", rns,
+                        (ar, ai, xr, xi), 2, int(bit))
+
+
+fp2_pow_step.launches = 0
+
 WRAPPERS = (miller_loop, pow_loop, fp2_pow_loop, dual_ladder, ladder_loop,
-            window_ladder_tab, window_ladder)
+            window_ladder_tab, window_ladder, dbl_step, add_step, pt_dbl,
+            pt_add, pow_step, fp2_pow_step)

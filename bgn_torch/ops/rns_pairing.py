@@ -6,6 +6,10 @@ float32 residues [2k, N] (fieldcore/rns.py).  The loops that the JAX
 package runs as Pallas kernels run here through the wrappers of
 ops/cuda_rns.py: a hand-written CUDA kernel for a CUDA tensor, the plain
 PyTorch version (built from the step functions below) for a CPU tensor.
+The kernel granularity follows the JAX package's Pallas mode: "loop" (the
+default) runs each Miller loop, ladder, window chain and exponentiation
+as one kernel; "1" (config.BGNParams(rns_pallas="1")) runs it as a host
+loop with one step-kernel launch per step.  Both give the same residues.
 
 Static bound discipline (values < bound*p, headroom h >= 1024): loop
 invariants X, Y < 27p, Z < 6p, f_re, f_im < 9p; affine inputs < 3p.  The
@@ -26,6 +30,25 @@ from .curve import AffinePoint, JacPoint
 
 # Loop-invariant bounds (multiples of p).
 _BX, _BY, _BZ, _BF = 27, 27, 6, 9
+
+# Kernel granularity (the JAX package's BGN_TPU_RNS_PALLAS, set here only
+# through config.BGNParams.apply_kernel_modes):
+#   "loop"  each ladder, Miller loop, window chain and exponentiation as
+#           ONE kernel launch (ops/cuda_rns.py loop kernels); the default.
+#   "1"     a host loop over the digits with one step-kernel launch per
+#           step (dbl_step, add_step, pt_dbl, pt_add, pow_step,
+#           fp2_pow_step), the state in device memory between steps.
+_PALLAS_MODE = "loop"
+
+
+def _mode() -> str:
+    """The granularity of _PALLAS_MODE: "loop" or "step"."""
+    if _PALLAS_MODE == "loop":
+        return "loop"
+    if _PALLAS_MODE == "1":
+        return "step"
+    raise ValueError(f"unknown kernel granularity {_PALLAS_MODE!r} "
+                     "(the port runs 'loop' and '1')")
 
 
 def _pt(v):
@@ -201,18 +224,16 @@ def _scan_mul(rns: RNSCtx, z, reverse: bool):
 
 def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
     """Jacobian (raw residues [2k, B], bounds <= (27, 27, 6)) -> canonical
-    affine limbs, with one Fermat inversion of the batch product (the
-    pow_loop kernel at N = 1).  A dead lane's Z is literal 0.0 in every
-    channel, which no live value can produce."""
-    from . import cuda_rns
-
+    affine limbs, with one Fermat inversion of the batch product (_rns_pow
+    at N = 1).  A dead lane's Z is literal 0.0 in every channel, which no
+    live value can produce."""
     dead = torch.all(Z == 0.0, dim=0)
     one_b = rns.one_rns.expand_as(Z)
     zsafe = torch.where(dead[None], one_b, Z)
     prefix = _scan_mul(rns, zsafe, reverse=False)
     suffix = _scan_mul(rns, zsafe, reverse=True)
     total = prefix[:, -1:].contiguous()
-    tinv = cuda_rns.pow_loop(rns, total, ctx.pm2_bits)      # [2k, 1]
+    tinv = _rns_pow(rns, RVal(total, 3), ctx.pm2_bits).v    # [2k, 1]
     one_col = one_b[:, :1]
     pre_excl = torch.cat([one_col, prefix[:, :-1]], dim=1)
     suf_excl = torch.cat([suffix[:, 1:], one_col], dim=1)
@@ -233,12 +254,12 @@ def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
 def mont_inv_rns(ctx: MontCtx, rns: RNSCtx, x):
     """Montgomery-form limb inverse x^-1 (montgomery.mont_inv's contract,
     limbs [L, *batch] in and out) with the Fermat chain x^(p-2) run in RNS
-    as one pow_loop launch instead of 16L sequential limb products; the
-    inverse of the limb batch inversion in curve.normalize.  Exact:
-    to_rns_mont / from_rns_mont round-trip the Montgomery representative."""
+    (_rns_pow) instead of 16L sequential limb products; the inverse of the
+    limb batch inversion in curve.normalize.  Exact: to_rns_mont /
+    from_rns_mont round-trip the Montgomery representative."""
     batch_shape = tuple(x.shape[1:])
     xr = rn.to_rns_mont(rns, x.reshape(ctx.L, _flat(batch_shape)))
-    w = rn.r_pow_bits(rns, xr, ctx.pm2_bits)
+    w = _rns_pow(rns, xr, ctx.pm2_bits)
     return rn.from_rns_mont(rns, w).reshape((ctx.L,) + batch_shape)
 
 
@@ -296,16 +317,23 @@ def neg_y_rns(rns: RNSCtx, Y, bound: int, mask):
 
 def fixed_base_mul_rns(ctx: MontCtx, rns: RNSCtx, table, digits, raw=False):
     """base^e via the radix-256 window table (x, y) [J, R, 2k] of base
-    (the window_ladder_tab kernel): LSB-first window accumulation, one
-    mixed addition per live window, flag-exact identity handling; for
-    exponents below ord(base) no addition is degenerate (JAX package
-    docstring).  digits: [Jd, B] per-lane window digits, least significant
-    first.  raw=True returns the (X, Y, Z) RVals; else a limb-Montgomery
-    JacPoint.  Z = 0 (exact zero residues) for e = 0."""
+    (the window_ladder_tab kernel; in step mode the rows are gathered and
+    the chain runs one pt_add launch per window): LSB-first window
+    accumulation, one mixed addition per live window, flag-exact identity
+    handling; for exponents below ord(base) no addition is degenerate (JAX
+    package docstring).  digits: [Jd, B] per-lane window digits, least
+    significant first.  raw=True returns the (X, Y, Z) RVals; else a
+    limb-Montgomery JacPoint.  Z = 0 (exact zero residues) for e = 0."""
     from . import cuda_rns
     dg = torch.as_tensor(digits).to(table[0].device)
-    out = (RVal(v, b) for v, b in zip(
-        cuda_rns.window_ladder_tab(rns, table, dg), (_BX, _BY, _BZ)))
+    if _mode() == "loop":
+        xyz = cuda_rns.window_ladder_tab(rns, table, dg)
+    else:
+        gx, gy = (g.contiguous() for g in cuda_rns._gather_rows(table, dg))
+        X, Y, Z, st = cuda_rns._window_chain(rns, gx, gy, dg != 0,
+                                             cuda_rns.pt_add)
+        xyz = X, Y, torch.where(st[None], Z, torch.zeros_like(Z))
+    out = (RVal(v, b) for v, b in zip(xyz, (_BX, _BY, _BZ)))
     if raw:
         return tuple(out)
     return JacPoint(*(rn.from_rns_mont(rns, v) for v in out))
@@ -313,17 +341,24 @@ def fixed_base_mul_rns(ctx: MontCtx, rns: RNSCtx, table, digits, raw=False):
 
 def scalar_mul_rns(ctx: MontCtx, rns: RNSCtx, base: AffinePoint, digits):
     """base^e in G1 via an RNS double-and-add ladder (the ladder_loop
-    kernel); e = shared MSB-first digits, plain bits or signed NAF, first
-    digit +1 (the decrypt exponent q1, bgn.go:222-223).  Returns the raw
-    (X, Y, Z) RVals over the flattened batch (the JAX package's raw=True,
-    its only form in use): identity-base lanes carry garbage residues,
-    which the caller masks via base.inf."""
+    kernel; in step mode a pt_dbl launch per digit after the first and a
+    pt_add with A or -A on each nonzero one); e = shared MSB-first digits,
+    plain bits or signed NAF, first digit +1 (the decrypt exponent q1,
+    bgn.go:222-223).  Returns the raw (X, Y, Z) RVals over the flattened
+    batch (the JAX package's raw=True, its only form in use):
+    identity-base lanes carry garbage residues, which the caller masks via
+    base.inf."""
     from . import cuda_rns
     flat = _flat(base.x.shape[1:])
     ax = rn.to_rns_mont(rns, base.x.reshape(ctx.L, flat)).v.contiguous()
     ay = rn.to_rns_mont(rns, base.y.reshape(ctx.L, flat)).v.contiguous()
     one = rns.one_rns.expand_as(ax).contiguous()
-    X, Y, Z = cuda_rns.ladder_loop(rns, ax, ay, one, ax, ay, digits[1:])
+    if _mode() == "loop":
+        X, Y, Z = cuda_rns.ladder_loop(rns, ax, ay, one, ax, ay, digits[1:])
+    else:
+        X, Y, Z = cuda_rns._ladder_chain(rns, ax, ay, one, ax, ay,
+                                         digits[1:], cuda_rns.pt_dbl,
+                                         cuda_rns.pt_add)
     return RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
 
 
@@ -386,20 +421,35 @@ def _fp2_conj(rns, x):
     return a, rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
 
 
+def _rns_pow(rns: RNSCtx, x: RVal, bits) -> RVal:
+    """x^e in F_p over shared MSB-first bits (x [2k, N], bound <= 16):
+    one pow_loop launch, or in step mode one pow_step launch per bit.
+    Result bound 3.  (rn.r_batch_inv keeps pow_loop in every mode, as the
+    JAX package keeps its XLA scan there.)"""
+    from . import cuda_rns
+    assert x.bound <= 16, x.bound
+    xv = x.v.contiguous()
+    if _mode() == "loop":
+        return RVal(cuda_rns.pow_loop(rns, xv, bits), 3)
+    return RVal(cuda_rns._pow_chain(rns, xv, bits, cuda_rns.pow_step), 3)
+
+
 def _fp2_inv(rns, x, pm2_bits):
     """1/(a+bi) = (a-bi)/(a^2+b^2); the Fermat inversion of the norm is
-    one pow_loop (rn.r_pow_bits)."""
+    one _rns_pow."""
     a, b = x
     aa, bb = rn.r_mul_many(rns, [(a, a), (b, b)])
     norm = rn.r_add(rns, aa, bb)
-    ninv = rn.r_pow_bits(rns, norm, pm2_bits)
+    ninv = _rns_pow(rns, norm, pm2_bits)
     nb = rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
     return rn.r_mul(rns, a, ninv), rn.r_mul(rns, nb, ninv)
 
 
 def _fp2_pow_bits(rns, x, digits, unitary=False):
     """x^e for an F_p^2 element over shared MSB-first digits (signed NAF
-    only when x is unitary: a negative digit multiplies by conj(x))."""
+    only when x is unitary: a negative digit multiplies by conj(x)); one
+    fp2_pow_loop launch, or in step mode one fp2_pow_step launch per
+    digit.  Negative digits of a non-unitary x raise before any launch."""
     from . import cuda_rns
     digits = torch.as_tensor(digits)
     if not unitary:
@@ -409,8 +459,12 @@ def _fp2_pow_bits(rns, x, digits, unitary=False):
                 "(signed NAF needs unitary=True)")
     xr, xi = x
     assert xr.bound <= 9 and xi.bound <= 10, (xr.bound, xi.bound)
-    ar, ai = cuda_rns.fp2_pow_loop(rns, xr.v.contiguous(),
-                                   xi.v.contiguous(), digits)
+    xrv, xiv = xr.v.contiguous(), xi.v.contiguous()
+    if _mode() == "loop":
+        ar, ai = cuda_rns.fp2_pow_loop(rns, xrv, xiv, digits)
+    else:
+        ar, ai = cuda_rns._fp2_chain(rns, xrv, xiv, digits,
+                                     cuda_rns.fp2_pow_step)
     return RVal(ar, 9), RVal(ai, 9)
 
 
@@ -462,7 +516,10 @@ def final_exponentiation_rns(ctx: MontCtx, rns: RNSCtx, f, l_bits):
 def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
                   b: AffinePoint, n_digits):
     """Miller function value f_{n,A}(phi(B)) as RNS RVals over the flat
-    batch (miller_loop kernel); the first nonzero digit must be +1."""
+    batch (the miller_loop kernel; in step mode a dbl_step launch per
+    digit after the first nonzero one and an add_step with A or -A after
+    each nonzero digit but the last); the first nonzero digit must be
+    +1."""
     L = ctx.L
     # numpy's broadcast: torch.broadcast_shapes imports sympy on first use
     batch_shape = np.broadcast_shapes(tuple(a.x.shape[1:]),
@@ -474,9 +531,12 @@ def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
             rns, lb.expand_to(x, (L,) + tuple(batch_shape)).reshape(L, flat))
 
     from . import cuda_rns
-    ax, ay = prep(a.x), prep(a.y)
-    xb, yb = prep(b.x), prep(b.y)
-    fr, fi = cuda_rns.miller_loop(rns, ax.v, ay.v, xb.v, yb.v, n_digits)
+    ax, ay, xb, yb = (prep(v).v.contiguous() for v in (a.x, a.y, b.x, b.y))
+    if _mode() == "loop":
+        fr, fi = cuda_rns.miller_loop(rns, ax, ay, xb, yb, n_digits)
+    else:
+        fr, fi = cuda_rns._miller_chain(rns, ax, ay, xb, yb, n_digits,
+                                        cuda_rns.dbl_step, cuda_rns.add_step)
     return (RVal(fr, _BF), RVal(fi, _BF)), tuple(batch_shape)
 
 

@@ -623,8 +623,20 @@ def _device_r_digits(sampler_ctx: MontCtx, generator, batch: int, J: int):
 
 def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
     """Both window chains + the g +- h combine (dual_ladder kernel), then
-    the RNS normalize (batch-inversion scans + one pow_loop).  Digits:
-    host arrays or device tensors."""
+    the RNS normalize (batch-inversion scans + one pow_loop).  In step
+    mode (rns_pallas="1") the JAX package's split path instead: the two
+    window chains apart, h normalized, one complete limb madd and the limb
+    normalize; the canonical affine result is the same.  Digits: host
+    arrays or device tensors."""
+    if rns_pairing._mode() == "step":
+        ctx = dev.ctx
+        g = rns_pairing.fixed_base_mul_rns(ctx, dev.rns, dev.p_win, m_digits)
+        neg = torch.as_tensor(m_neg, device=g.Y.device)
+        g = curve.JacPoint(g.X, lb.select(neg, mg.mod_neg(ctx, g.Y), g.Y),
+                           g.Z)
+        h = rns_pairing.fixed_base_mul_rns(ctx, dev.rns, dev.q_win, r_digits)
+        h_aff = curve.normalize(ctx, h, rns=dev.rns)
+        return curve.normalize(ctx, curve.madd(ctx, g, h_aff), rns=dev.rns)
     device = dev.n_naf.device
     Jm = m_digits.shape[0]
     dig = torch.cat([torch.as_tensor(m_digits, device=device),

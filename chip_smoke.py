@@ -12,12 +12,15 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (k <= 192, the extension matrices in device memory), and mont_mul;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
-  3. kernels: each of the seven RNS kernels at the shapes the main paths
-     give it, and mont_mul at L = 34 (N = 8192, also with a broadcast R^2
-     operand), L = 66 and L = 130 (N = 512), against its plain PyTorch
-     version on the same inputs (torch.equal: the kernels are exact
-     integer arithmetic), with the kernel's and the plain version's times
-     (CUDA events);
+  3. kernels: each of the seven RNS loop kernels and the six step
+     kernels at the shapes the paths give it (the step kernels at
+     N = batch, pow_step also at N = 1), and mont_mul at L = 34
+     (N = 8192, also with a broadcast R^2 operand), L = 66 and L = 130
+     (N = 512), against its plain PyTorch version on the same inputs
+     (torch.equal: the kernels are exact integer arithmetic), with the
+     kernel's and the plain version's times (CUDA events); then a chain
+     of step-kernel launches (the per-step configuration's host loop)
+     against each loop kernel's output, bit for bit;
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -43,9 +46,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
      kernel against its plain version at N = big-batch over 32-digit
      strings, then Encrypt -> Mult -> DecryptL2 at big-batch lanes, every
      lane checked;
+  4f. the per-step configuration, BGNParams(rns_pallas="1"), on phase 2's
+     key: Encrypt (the split path) -> Mult -> DecryptL2 at batch lanes,
+     Encrypt and Mult torch.equal to phase 4's outputs on the same inputs;
+     EncryptDeterministic, Add, Sub, Neg, MultConst, MakeL2 -> Decrypt at
+     decrypt-batch lanes; every lane checked; each step kernel must be
+     launched and the five loop-only kernels must not; ops/s of a first
+     and a second call;
   5. one call of each op under torch.profiler (the re-randomized Mult and
-     L2 Add included): device busy time, idle share and the costliest
-     device kernels.
+     L2 Add, and the step-mode Mult and Encrypt, included): device busy
+     time, idle share, the costliest device kernels and the wrappers'
+     launches.
 The line before the last is one JSON object {"kernels": [...]} (times,
 launches, bounds); the last line is {"ok": true, "device": {...}}.
 There is no CPU path: without a CUDA device the script exits nonzero
@@ -71,6 +82,9 @@ PEAK_BF16_S = 989e12
 # 1.98 GHz (the Hopper white paper's 33.5 INT32 TOPS counts a
 # multiply-add as two operations).
 PEAK_INT32_MAD_S = 16.7e12
+# ~50 ms of the card's clock (1.98 GHz): covers the host's enqueue of 50
+# step-kernel launches
+SLEEP_CYCLES = 100_000_000
 
 # Elementwise fp32 operations per lane, counted from the plain code
 # (bgn_torch/fieldcore/rns.py): a _red is 7 ops (mul, floor, mul, sub,
@@ -99,6 +113,12 @@ REPLACES = {
     "ladder_loop": "bgn_tpu/ops/pallas_rns.py:359",
     "window_ladder_tab": "bgn_tpu/ops/pallas_rns.py:536",
     "window_ladder": "bgn_tpu/ops/pallas_rns.py:715",
+    "dbl_step": "bgn_tpu/ops/pallas_rns.py:104",
+    "add_step": "bgn_tpu/ops/pallas_rns.py:110",
+    "pt_dbl": "bgn_tpu/ops/pallas_rns.py:135",
+    "pt_add": "bgn_tpu/ops/pallas_rns.py:152",
+    "pow_step": "bgn_tpu/ops/pallas_rns.py:223",
+    "fp2_pow_step": "bgn_tpu/ops/pallas_rns.py:228",
     # one integer kernel for both TPU forms (mont_mul_pallas_f32 and
     # mont_mul_pallas, :190): the TPU split them only to avoid int32
     # multiplies
@@ -111,6 +131,13 @@ L1_PATH = ("ladder_loop", "window_ladder_tab", "pow_loop", "miller_loop",
            "fp2_pow_loop")
 LIMB_PATH = ("mont_mul", "dual_ladder", "miller_loop", "pow_loop",
              "fp2_pow_loop", "ladder_loop")
+# the per-step configuration: every step kernel, and none of the loop
+# kernels that it replaces (pow_loop stays in the BSGS batch inversion,
+# as in the JAX package; mont_mul in the split Encrypt's limb madd)
+STEP_PATH = ("dbl_step", "add_step", "pt_dbl", "pt_add", "pow_step",
+             "fp2_pow_step")
+LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
+             "window_ladder_tab")
 
 
 def log(msg: str) -> None:
@@ -143,7 +170,11 @@ def bound(elem_total: float, mm_total: float, nbytes: float,
 
 def cuda_ms(fn, torch) -> float:
     """Mean ms of fn() over repeated launches (CUDA events, warmed up; up
-    to 50 launches or about 1.5 s)."""
+    to 50 launches or about 1.5 s).  A sleep kernel queued ahead of the
+    timed launches lets the host enqueue them while the card waits, so a
+    short kernel is timed at the card's rate, not at the host's launch
+    rate; a wrapper that synchronizes (the window kernels' digit checks)
+    still adds its host time."""
     fn()
     torch.cuda.synchronize()
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -153,6 +184,7 @@ def cuda_ms(fn, torch) -> float:
     torch.cuda.synchronize()
     one = e0.elapsed_time(e1)
     reps = max(1, min(50, int(1500.0 / max(one, 1e-3))))
+    torch.cuda._sleep(SLEEP_CYCLES)
     e0.record()
     for _ in range(reps):
         fn()
@@ -161,16 +193,19 @@ def cuda_ms(fn, torch) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def profile_op(torch, label: str, fn, card: str, top: int = 6) -> None:
+def profile_op(torch, label: str, fn, card: str, wrappers,
+               top: int = 6) -> None:
     """One call of fn under torch.profiler: wall time, summed device time
     of its kernels (device-side events only, so a torch op and the kernel
-    it launches are not both counted), the device's idle share, and the
-    costliest kernels.  The raw events are read directly: key_averages()
-    takes minutes over the ~10^6 events of a limb-path call.  The
-    profiler's own host overhead lengthens the wall time, so the idle
-    share is an upper estimate."""
+    it launches are not both counted), the device's idle share, the
+    costliest kernels and each wrapper's launches in the call.  The raw
+    events are read directly: key_averages() takes minutes over the ~10^6
+    events of a limb-path call.  The profiler's own host overhead
+    lengthens the wall time, so the idle share is an upper estimate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    for wfn in wrappers:
+        wfn.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -190,6 +225,8 @@ def profile_op(torch, label: str, fn, card: str, top: int = 6) -> None:
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:70]}")
+    log("  launches: " + str({wfn.__name__: wfn.launches for wfn in wrappers
+                              if wfn.launches}))
 
 
 def ptxas_table(report: str) -> list:
@@ -237,12 +274,22 @@ def main() -> None:
     import numpy as np
 
     from bgn_torch import _build, hostmath as hm, scheme
+    from bgn_torch.config import BGNParams
     from bgn_torch.fieldcore import cuda_mont, limbs as lb, montgomery as mg
     from bgn_torch.fieldcore import rns as rn
     from bgn_torch.ops import cuda_rns, rns_pairing as rp
     from bgn_torch.utils import convert, rng as rng_mod
 
     wrappers = cuda_rns.WRAPPERS + (cuda_mont.mont_mul,)
+    step_wrappers = tuple(getattr(cuda_rns, name) for name in STEP_PATH)
+
+    def in_step_mode(fn):
+        """fn() under BGNParams(rns_pallas="1"), the default mode after."""
+        BGNParams(rns_pallas="1").apply_kernel_modes()
+        try:
+            return fn()
+        finally:
+            BGNParams(rns_pallas="loop").apply_kernel_modes()
 
     dev = torch.device("cuda")
     t_start = phase_t = time.time()
@@ -323,13 +370,29 @@ def main() -> None:
         results.setdefault(name, []).append(rec)
         return got
 
+    def chain_equal(name, shape, want, fn, key_bits):
+        """A chain of step-kernel launches (the per-step configuration's
+        host loop) against the loop kernel's output, bit for bit."""
+        before = sum(w.launches for w in step_wrappers)
+        got = fn()
+        n = sum(w.launches for w in step_wrappers) - before
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if n < 1 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{n} step launches != {name} {shape} "
+                                 f"({key_bits}-bit)")
+        log(f"chain of {n} step launches equals {name} {shape} "
+            f"({key_bits}-bit)")
+
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder, miller_loop, window_ladder_tab, window_ladder at B
         lanes, ladder_loop and fp2_pow_loop (q1) at Bd, pow_loop at B and
-        1.  trunc: cut every digit string to its first trunc digits and
-        the random exponents to trunc bits (the plain versions then stay
-        short)."""
+        1; the step kernels at B (pt_dbl, pt_add and fp2_pow_step also at
+        Bd, pow_step at 1), and a chain of step launches against each
+        loop kernel.  trunc: cut every digit string to its first trunc
+        digits and the random exponents to trunc bits (the plain versions
+        then stay short)."""
         ctx, rns, dk = pk.dev.ctx, pk.dev.rns, pk.dev
         k, key_bits = rns.k, pk.key_bits
         state = 2 * k * f32                # bytes of one residue element
@@ -396,6 +459,12 @@ def main() -> None:
         if not all(torch.equal(u, v) for u, v in zip(got, tab_out)):
             raise AssertionError("window_ladder != window_ladder_tab")
         del gx, gy
+        chain_equal("window_ladder_tab", f"B={B}, Jd={dnp.shape[0]} "
+                    f"({wide})", tab_out,
+                    lambda: tuple(v.v for v in in_step_mode(
+                        lambda: rp.fixed_base_mul_rns(ctx, rns, dk.p_win,
+                                                      dgt, raw=True))),
+                    key_bits)
 
         # ciphertext points -> Miller inputs (normalize runs pow_loop, N=1)
         pt = rp.normalize_rns(ctx, rns, X, Y, Z)
@@ -414,6 +483,10 @@ def main() -> None:
             lambda: cuda_rns.miller_loop_plain(rns, ax, ay, xb, yb, n_naf),
             (B * e, B * mm), 4 * B * state + nd * 4 + 2 * B * state,
             key_bits)
+        chain_equal("miller_loop", f"B={B}, digits={nd}", (fr, fi),
+                    lambda: cuda_rns._miller_chain(
+                        rns, ax, ay, xb, yb, n_naf, cuda_rns.dbl_step,
+                        cuda_rns.add_step), key_bits)
 
         # ladder_loop (L1 decrypt: csk = C^q1) at Bd lanes
         cx, cy = ax[:, :Bd].contiguous(), ay[:, :Bd].contiguous()
@@ -421,12 +494,17 @@ def main() -> None:
         qd = np.asarray(sk.q1_naf)[1:][:trunc]
         e, mm = ops_of(k, {"dbl_pt": len(qd),
                            "add_pt": int(np.count_nonzero(qd))})
-        check("ladder_loop", f"N={Bd}, q1_naf={len(qd)}",
-              lambda: cuda_rns.ladder_loop(rns, cx, cy, one, cx, cy, qd),
-              lambda: cuda_rns.ladder_loop_plain(rns, cx, cy, one, cx, cy,
+        lad = check("ladder_loop", f"N={Bd}, q1_naf={len(qd)}",
+                    lambda: cuda_rns.ladder_loop(rns, cx, cy, one, cx, cy,
                                                  qd),
-              (Bd * e, Bd * mm), 5 * Bd * state + len(qd) * 4
-              + 3 * Bd * state, key_bits)
+                    lambda: cuda_rns.ladder_loop_plain(rns, cx, cy, one, cx,
+                                                       cy, qd),
+                    (Bd * e, Bd * mm), 5 * Bd * state + len(qd) * 4
+                    + 3 * Bd * state, key_bits)
+        chain_equal("ladder_loop", f"N={Bd}, q1_naf={len(qd)}", lad,
+                    lambda: cuda_rns._ladder_chain(
+                        rns, cx, cy, one, cx, cy, qd, cuda_rns.pt_dbl,
+                        cuda_rns.pt_add), key_bits)
 
         # pow_loop: the norm inversion of _fp2_inv (N = B), normalize (N = 1)
         aa, bb = rn.r_mul_many(rns, [(rn.RVal(fr, 9), rn.RVal(fr, 9)),
@@ -435,10 +513,15 @@ def main() -> None:
         e, mm = ops_of(k, {"r_mul": len(pm2) + int(np.count_nonzero(pm2))})
         for n in (B, 1):
             x = norm[:, :n].contiguous()
-            check("pow_loop", f"N={n}, bits={len(pm2)}",
-                  lambda x=x: cuda_rns.pow_loop(rns, x, pm2),
-                  lambda x=x: cuda_rns.pow_loop_plain(rns, x, pm2),
-                  (n * e, n * mm), 2 * n * state + len(pm2) * 4, key_bits)
+            pw = check("pow_loop", f"N={n}, bits={len(pm2)}",
+                       lambda x=x: cuda_rns.pow_loop(rns, x, pm2),
+                       lambda x=x: cuda_rns.pow_loop_plain(rns, x, pm2),
+                       (n * e, n * mm), 2 * n * state + len(pm2) * 4,
+                       key_bits)
+            chain_equal("pow_loop", f"N={n}, bits={len(pm2)}", pw,
+                        lambda x=x: cuda_rns._pow_chain(rns, x, pm2,
+                                                        cuda_rns.pow_step),
+                        key_bits)
 
         # fp2_pow_loop: ^l (final exponentiation, B), z^q1 (decrypt, Bd)
         f = (rn.RVal(fr, 9), rn.RVal(fi, 9))
@@ -457,6 +540,59 @@ def main() -> None:
                       lambda xr=xr, xi=xi, d=digs:
                           cuda_rns.fp2_pow_loop_plain(rns, xr, xi, d),
                       (n * e, n * mm), 4 * n * state + len(digs) * 4,
+                      key_bits)
+            chain_equal("fp2_pow_loop", f"N={n}, {name_d}={len(digs)}", z,
+                        lambda xr=xr, xi=xi, d=digs: cuda_rns._fp2_chain(
+                            rns, xr, xi, d, cuda_rns.fp2_pow_step),
+                        key_bits)
+
+        # the six step kernels, one launch each, at the shapes of the
+        # per-step configuration: Miller steps at B (state: the dual
+        # ladder's point and the Miller value), the G1 steps at B (the
+        # window chains) and Bd (the decrypt ladder), pow_step at B and 1,
+        # fp2_pow_step at B and Bd, both with bit 1 and 0
+        blob = cuda_rns.blob_layout(k)["words"] * f32
+        st = tuple(v.contiguous() for v in (X, Y, Z, fr, fi))
+        for name, ins, counts, rows in (
+                ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12),
+                ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14)):
+            e, mm = ops_of(k, counts)
+            check(name, f"N={B}",
+                  lambda f=getattr(cuda_rns, name), a=ins: f(rns, *a),
+                  lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
+                      f(rns, *a),
+                  (B * e, B * mm), rows * B * state + blob, key_bits)
+        for n in dict.fromkeys((B, Bd)):
+            p3 = tuple(v[:, :n].contiguous() for v in st[:3])
+            a2 = (ax[:, :n].contiguous(), ay[:, :n].contiguous())
+            for name, ins, counts, rows in (
+                    ("pt_dbl", p3, {"dbl_pt": 1}, 6),
+                    ("pt_add", p3 + a2, {"add_pt": 1}, 8)):
+                e, mm = ops_of(k, counts)
+                check(name, f"N={n}",
+                      lambda f=getattr(cuda_rns, name), a=ins: f(rns, *a),
+                      lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
+                          f(rns, *a),
+                      (n * e, n * mm), rows * n * state + blob, key_bits)
+        for n in dict.fromkeys((B, 1)):
+            for bit in (1, 0):
+                ins = (aa.v[:, :n].contiguous(), norm[:, :n].contiguous(),
+                       bit)
+                e, mm = ops_of(k, {"r_mul": 1 + bit})
+                check("pow_step", f"N={n}, bit={bit}",
+                      lambda a=ins: cuda_rns.pow_step(rns, *a),
+                      lambda a=ins: cuda_rns.pow_step_plain(rns, *a),
+                      (n * e, n * mm), (2 + bit) * n * state + blob,
+                      key_bits)
+        for n in dict.fromkeys((B, Bd)):
+            for bit in (1, 0):
+                ins = tuple(v[:, :n].contiguous() for v in (fr, fi, wr, wi)) \
+                    + (bit,)
+                e, mm = ops_of(k, {"fp2_sqr": 1, "fp2_mul": bit})
+                check("fp2_pow_step", f"N={n}, bit={bit}",
+                      lambda a=ins: cuda_rns.fp2_pow_step(rns, *a),
+                      lambda a=ins: cuda_rns.fp2_pow_step_plain(rns, *a),
+                      (n * e, n * mm), (4 + 2 * bit) * n * state + blob,
                       key_bits)
 
     kernel_checks(pk, sk, B, Bd, args.seed + 1)
@@ -814,9 +950,69 @@ def main() -> None:
     del pk3, sk3, tables3, a3, b3, prod3
     phase_done("4e (2048-bit)")
 
+    # -- 4f. the per-step configuration on phase 2's key -----------------
+    BGNParams(rns_pallas="1").apply_kernel_modes()
+    zero_counts()
+    a_s, t_enc_s = timed(lambda: pk.encrypt_with_randomness(ms, rs))
+    b_s, _ = timed(lambda: pk.encrypt_with_randomness(ks, krs))
+    for got_ct, want_ct in ((a_s, a), (b_s, b)):
+        if not all(torch.equal(u, v) for u, v in zip(got_ct.data,
+                                                     want_ct.data)):
+            raise AssertionError("step-mode Encrypt != phase 4's Encrypt")
+    prod_s, t_mult_s = timed(lambda: pk.mult(a_s, b_s))
+    if not torch.equal(prod_s.data, prod.data):
+        raise AssertionError("step-mode Mult != phase 4's Mult")
+    log(f"step mode: Encrypt (split path) and Mult equal phase 4's outputs "
+        f"on all {B} lanes")
+    t_dec_s = decrypt_all(sk, pk, tables, prod_s,
+                          [m * kk for m, kk in zip(ms, ks)],
+                          "step-mode DecryptL2 (m*k)", Bd)
+    a_l, b_l = a_s[:Bd], b_s[:Bd]
+    ms_l, ks_l = ms[:Bd], ks[:Bd]
+    ops_s = {}
+    for op, fn, want in (
+            ("EncryptDeterministic", lambda: pk.encrypt_deterministic(ms_l),
+             ms_l),
+            ("Add", lambda: pk.add(a_l, b_l),
+             [m + kk for m, kk in zip(ms_l, ks_l)]),
+            ("Sub", lambda: pk.sub(a_l, b_l),
+             [m - kk for m, kk in zip(ms_l, ks_l)]),
+            ("Neg", lambda: pk.neg(a_l), [-m for m in ms_l]),
+            ("MultConst", lambda: pk.mult_const(a_l, ks_l),
+             [m * kk for m, kk in zip(ms_l, ks_l)]),
+            ("MakeL2", lambda: pk.make_l2(a_l), ms_l)):
+        out, t1 = timed(fn)
+        t_d = decrypt_all(sk, pk, tables, out, want, f"step-mode {op}", Bd)
+        ops_s[op] = (fn, t1, t_d)
+    launches_step = read_counts("step", STEP_PATH)
+    for name in LOOP_ONLY:
+        if launches_step[name]:
+            raise AssertionError(f"{name} launched {launches_step[name]} "
+                                 "times in step mode")
+    log(f"step mode: no launch of {', '.join(LOOP_ONLY)}")
+    _, t_enc_s2 = timed(lambda: pk.encrypt_with_randomness(ms, rs))
+    _, t_mult_s2 = timed(lambda: pk.mult(a_s, b_s))
+    _, t_dec_s2 = timed(lambda: sk.decrypt(prod_s[:Bd], pk, tables))
+    for op, n, t1, t2 in (("Encrypt", B, t_enc_s, t_enc_s2),
+                          ("Mult", B, t_mult_s, t_mult_s2),
+                          ("DecryptL2", Bd, t_dec_s, t_dec_s2)):
+        log(f"step-mode {op} {n / t1:.1f} ops/s first call, {n / t2:.1f} "
+            f"ops/s second call (B={n}) [{card}]")
+    for op, (fn, t1, t_d) in ops_s.items():
+        _, t2 = timed(fn)
+        log(f"step-mode {op} {Bd / t1:.1f} ops/s first call, "
+            f"{Bd / t2:.1f} ops/s second call (B={Bd}); its decrypt "
+            f"{Bd / t_d:.1f} ops/s [{card}]")
+    BGNParams(rns_pallas="loop").apply_kernel_modes()
+    phase_done("4f (per-step configuration)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
+                      ("step-mode Encrypt", lambda: in_step_mode(
+                          lambda: pk.encrypt_with_randomness(ms, rs))),
+                      ("step-mode Mult", lambda: in_step_mode(
+                          lambda: pk.mult(a, b))),
                       ("DecryptL2", lambda: sk.decrypt(prod[:Bd], pk, tables)),
                       ("Add", lambda: pk.add(a, b)),
                       ("Decrypt (L1)", lambda: sk.decrypt(ct1[:Bd], pk,
@@ -825,7 +1021,7 @@ def main() -> None:
                        lambda: pkr.mult(ar, br, rng=random.Random(13))),
                       ("L2 Add (re-randomized)",
                        lambda: pkr.add(prodr, prod2r, rng=random.Random(15)))):
-        profile_op(torch, label, fn, card)
+        profile_op(torch, label, fn, card, wrappers)
     phase_done("5 (profile)")
 
     kernels = []
@@ -836,13 +1032,15 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"bgn_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": (launches_main[name] + launches_l1[name]
+            "launches": (launches_step[name] if name in STEP_PATH
+                         else launches_main[name] + launches_l1[name]
                          + launches_limb[name]),
             "launches_by_path": {"main": launches_main[name],
                                  "l1": launches_l1[name],
                                  "limb": launches_limb[name],
                                  "1024": launches_1024[name],
-                                 "2048": launches_2048[name]},
+                                 "2048": launches_2048[name],
+                                 "step": launches_step[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

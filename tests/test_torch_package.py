@@ -90,8 +90,17 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
          (ctx, tab, dig)),
         (cuda_rns.window_ladder, cuda_rns.window_ladder_plain,
          (ctx, gx, gy, dig == 0)),
+        (cuda_rns.dbl_step, cuda_rns.dbl_step_plain,
+         (ctx, x, y, x, y, x, y, x)),
+        (cuda_rns.add_step, cuda_rns.add_step_plain,
+         (ctx, x, y, x, y, x, y, x, y, x)),
+        (cuda_rns.pt_dbl, cuda_rns.pt_dbl_plain, (ctx, x, y, x)),
+        (cuda_rns.pt_add, cuda_rns.pt_add_plain, (ctx, x, y, x, y, x)),
+        (cuda_rns.pow_step, cuda_rns.pow_step_plain, (ctx, x, y, 1)),
+        (cuda_rns.fp2_pow_step, cuda_rns.fp2_pow_step_plain,
+         (ctx, x, y, y, x, 1)),
     ]
-    assert len(cuda_rns.WRAPPERS) == 7
+    assert len(cuda_rns.WRAPPERS) == 13
     assert set(cuda_rns.WRAPPERS) == {c[0] for c in calls}
     for wrapper, plain, args in calls:
         assert isinstance(wrapper.launches, int)
