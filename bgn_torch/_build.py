@@ -6,7 +6,7 @@ shared library with a plain C interface, and loads it with ctypes.  The
 library lives in `build/kernels/` at the root of the checkout and is
 rebuilt when a source is newer than it.  Nothing here runs at import.
 `launch` calls an entry on the current stream for the wrappers of
-ops/cuda_rns.py and fieldcore/cuda_mont.py.
+ops/cuda_rns.py, ops/cuda_pairing.py and fieldcore/cuda_mont.py.
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c <src>.cu
@@ -49,6 +49,10 @@ _SIGNATURES = {
     "bgn_pt_add": [_P, _I, _I] + [_P] * 8 + [_I, _P],
     "bgn_pow_step": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    # the digit-domain Miller steps: (inputs, outputs, p, pinv, L, n,
+    # threads per block)
+    "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _I, _I, _P],
+    "bgn_miller_add_digits": [_P] * 15 + [_I, _I, _I, _I, _P],
 }
 
 # what the last build did: seconds, and nvcc's -Xptxas -v report

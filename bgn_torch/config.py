@@ -14,12 +14,17 @@ Kernel modes the port runs (each field's None keeps the default):
   rns_pallas   "loop" (the default: each ladder, Miller loop, window
                chain and exponentiation as one kernel) or "1" (one kernel
                launch per step: ops/rns_pairing.py).
-  rns_miller   "auto" or "1": the RNS pairing, the port's only one.
+  rns_miller   "auto" or "1" (the default: the RNS field path on every
+               device; the JAX package's "auto" is RNS on a TPU only) or
+               "0": the limb-domain configuration, every op on limbs
+               (ops/pairing.py use_rns).
+  fused_miller True (the default) or False: under rns_miller="0", the
+               Miller loop through the digit-domain step kernels
+               (ops/cuda_pairing.py) while 2L + 1 <= 129, or always the
+               limb Miller loop through mont_mul.
   pallas       True: the limb product as its CUDA kernel, the port's only
                form.
-Every other value raises, for the reason given in ROADMAP.md (queue 3
-for the modes that are not ported; queue 1 for the digit-domain
-pairing's slice).
+Every other value raises, for the reason given in ROADMAP.md (queue 3).
 """
 
 from __future__ import annotations
@@ -36,9 +41,6 @@ _REFUSED_RNS_PALLAS = {
     "interpret": _INTERPRET,
     "loop-interpret": _INTERPRET,
 }
-_DIGIT_DOMAIN = ("the digit-domain pairing (bgn_tpu/ops/pairing.py "
-                 "miller_loop_fused, TPU kernels 16-17) is not ported yet: "
-                 "ROADMAP.md queue 1, the slice after the per-step kernels")
 
 
 @dataclasses.dataclass
@@ -62,7 +64,7 @@ class BGNParams:
     mesh_axis: str = "data"
 
     # -- kernel-mode knobs (None = library default) ----------------------
-    rns_miller: Optional[str] = None    # "auto" | "1"
+    rns_miller: Optional[str] = None    # "auto" | "1" | "0"
     rns_pallas: Optional[str] = None    # "loop" | "1"
     fused_miller: Optional[bool] = None  # digit-domain Miller steps
     pallas: Optional[bool] = None        # the limb product's kernel
@@ -93,29 +95,29 @@ class BGNParams:
 
     def apply_kernel_modes(self) -> None:
         """Check every kernel-mode field, then set the port's kernel
-        granularity from rns_pallas; unset fields leave the defaults."""
+        granularity (rns_pallas), field domain (rns_miller) and Miller
+        form (fused_miller); unset fields leave the modes as they are."""
         if self.rns_pallas is not None and self.rns_pallas not in ("loop",
                                                                    "1"):
             why = _REFUSED_RNS_PALLAS.get(
                 self.rns_pallas, "unknown value (\"loop\" or \"1\")")
             raise ValueError(f"rns_pallas={self.rns_pallas!r}: {why}")
-        if self.rns_miller == "0":
-            raise NotImplementedError(f"rns_miller='0': {_DIGIT_DOMAIN}")
-        if self.rns_miller not in (None, "auto", "1"):
+        if self.rns_miller not in (None, "auto", "1", "0"):
             raise ValueError(f"rns_miller={self.rns_miller!r}: unknown "
                              "value (\"auto\", \"1\" or \"0\")")
-        if self.fused_miller is not None:
-            raise NotImplementedError(
-                f"fused_miller={self.fused_miller!r} selects a form of "
-                f"{_DIGIT_DOMAIN}")
         if self.pallas is False:
             raise NotImplementedError(
                 "pallas=False: the XLA limb product would be the plain "
                 "PyTorch version on CUDA tensors, as rns_pallas='0' would; "
                 "not ported (ROADMAP.md queue 3)")
+        from .ops import pairing
+        from .ops import rns_pairing as rp
         if self.rns_pallas is not None:
-            from .ops import rns_pairing as rp
             rp._PALLAS_MODE = self.rns_pallas
+        if self.rns_miller is not None:
+            pairing._RNS_MODE = self.rns_miller
+        if self.fused_miller is not None:
+            pairing._USE_FUSED = bool(self.fused_miller)
 
     # -- (de)serialization ------------------------------------------------
 

@@ -8,8 +8,8 @@ plain numpy (bf16 arrays are read through `astype(float32)`).
 Layout changes: limbs become int64 (the MontCtx's pinv a host int); the
 window residues go from the JAX [2k, J, R] layout to the port's
 [J, R, 2k]; the bf16 extension matrices w1, w2 become float32 (their
-values are bf16-exact).  The limb window table of Q (the JAX key's q_win)
-becomes the port's q_tab.
+values are bf16-exact).  The limb window tables of P and Q (the JAX key's
+p_win and q_win) become the port's p_tab and q_tab.
 """
 
 from __future__ import annotations
@@ -52,11 +52,13 @@ def affine_point(x, y, inf, device="cuda") -> AffinePoint:
                          for a in (x, y, inf)))
 
 
-def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_naf, l_bits, pair_qq,
-               p_win_rns, q_win_rns, q_win, device="cuda") -> PublicDeviceKey:
-    """PublicDeviceKey from the JAX key: P, Q and the limb window table
-    q_win ([L, J, R]) as (x, y, inf) arrays; pair_qq as [2, L] limbs;
-    p_win_rns, q_win_rns as (rx, ry) residues [2k, J, R]."""
+def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_bits, n_naf, l_bits,
+               pair_qq, p_win_rns, q_win_rns, p_win, q_win,
+               device="cuda") -> PublicDeviceKey:
+    """PublicDeviceKey from the JAX key: P, Q and the limb window tables
+    p_win, q_win ([L, J, R]) as (x, y, inf) arrays; n_bits, n_naf and
+    l_bits as digit vectors; pair_qq as [2, L] limbs; p_win_rns,
+    q_win_rns as (rx, ry) residues [2k, J, R]."""
     def win(t):
         return tuple(np.ascontiguousarray(
             np.moveaxis(np.asarray(a, dtype=np.float32), 0, -1)) for a in t[:2])
@@ -64,8 +66,9 @@ def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_naf, l_bits, pair_qq,
     return PublicDeviceKey(
         ctx=ctx, rns=rns,
         P=affine_point(*P, device=device), Q=affine_point(*Q, device=device),
-        n_naf=_ints(n_naf), l_bits=_ints(l_bits), pair_qq=_ints(pair_qq),
-        p_win=win(p_win_rns), q_win=win(q_win_rns),
+        n_bits=_ints(n_bits), n_naf=_ints(n_naf), l_bits=_ints(l_bits),
+        pair_qq=_ints(pair_qq), p_win=win(p_win_rns), q_win=win(q_win_rns),
+        p_tab=affine_point(*p_win, device=device),
         q_tab=affine_point(*q_win, device=device)).to(device)
 
 

@@ -4,8 +4,11 @@ The port's counterpart of `bgn_tpu/ops/bsgs.py`: the same host-built,
 salted, sorted digest tables and the same reference indexing (a hit at
 giant step i with table value j means m = i*bound + j + 1; the inverse is
 tried second and its hit negated).  The G1 and GT giant-step scans run
-in RNS; candidates convert to canonical limbs only for the digest lookup, and
-every digest hit is verified against the full stored limbs.
+in RNS by default; candidates convert to canonical limbs only for the digest lookup, and
+every digest hit is verified against the full stored limbs.  Under
+BGNParams(rns_miller="0") the limb scans bsgs_g1 (complete mixed
+additions, one limb normalize over all candidates) and bsgs_gt (F_p^2
+products) run instead, as in the JAX package off the TPU.
 
 Digests are uint32 sums with wraparound in the JAX package; here they are
 computed in int64 (products < 2^48, sums < 2^55) and masked to 32 bits,
@@ -22,11 +25,13 @@ from torch import nn
 
 from .. import hostmath as hm
 from ..fieldcore import limbs as lb
+from ..fieldcore import montgomery as mg
 from ..fieldcore import rns as rn
 from ..fieldcore.montgomery import MontCtx
 from ..utils import convert
+from . import fp2
 from . import rns_pairing as rp
-from .curve import AffinePoint
+from .curve import AffinePoint, JacPoint, dbl, madd, normalize, to_jac
 
 _MASK32 = 0xFFFFFFFF
 
@@ -198,6 +203,66 @@ def _first_hit(hits: torch.Tensor, vals: torch.Tensor, bound: int):
     return found.to(torch.int64), i_star * bound + val + 1
 
 
+def _signed_result(hits, vals, bound: int, is_zero_ct):
+    """(found, m signed) from the hits of the positive lane [:, 0] and the
+    inverse lane [:, 1]: the positive hit first (bgn.go:235-242), m = 0
+    for the identity."""
+    found_p, m_p = _first_hit(hits[:, 0], vals[:, 0], bound)
+    found_n, m_n = _first_hit(hits[:, 1], vals[:, 1], bound)
+    m_signed = torch.where(found_p.to(torch.bool), m_p, -m_n)
+    m_signed = torch.where(is_zero_ct.to(torch.bool),
+                           torch.zeros_like(m_signed), m_signed)
+    return is_zero_ct | found_p | found_n, m_signed
+
+
+def bsgs_g1(ctx: MontCtx, tables: DecryptTables, csk: JacPoint):
+    """Limb giant-step scan + lookup for a batch of G1 points csk = C^q1
+    (Jacobian [L, *batch]): the chain csk * gamma^-i of complete mixed
+    additions for i = 0..bound, in both signs, then ONE limb normalize of
+    all candidates.  Returns (found {0,1}, m signed) of batch shape."""
+    bound = tables.bound
+    batch = tuple(csk.Z.shape[1:])
+    L = ctx.L
+    g = tables.point("gamma_inv_g1")
+    shape = (L,) + batch
+    base = AffinePoint(lb.expand_to(g.x, shape), lb.expand_to(g.y, shape),
+                       g.inf.reshape((1,) * len(batch)).expand(batch))
+    base2 = dbl(ctx, to_jac(ctx, base))
+    neg_csk = JacPoint(csk.X, mg.mod_neg(ctx, csk.Y), csk.Z)
+    # the two signs on a new batch axis: [L, 2, *batch]
+    v = JacPoint(*(torch.stack([u, w], dim=1) for u, w in zip(csk, neg_csk)))
+    base_b = AffinePoint(base.x[:, None], base.y[:, None], base.inf[None])
+    base2_b = JacPoint(base2.X[:, None], base2.Y[:, None], base2.Z[:, None])
+    auxs = [v]
+    for _ in range(bound):
+        v = madd(ctx, v, base_b, base2_b)
+        auxs.append(v)
+    # candidates [L, bound+1, 2, *batch], normalized in one batch inversion
+    aff = normalize(ctx, JacPoint(*(torch.stack(c, dim=1)
+                                    for c in zip(*auxs))))
+    words = torch.cat([aff.x, aff.y], dim=0)
+    hits, vals = _lookup(tables.table_g1, words)
+    hits = hits * (1 - aff.inf)     # the identity matches no table entry
+    return _signed_result(hits, vals, bound, lb.is_zero(csk.Z))
+
+
+def bsgs_gt(ctx: MontCtx, tables: DecryptTables, csk):
+    """bsgs_g1 for GT: csk [2, L, *batch] = c^q1 in F_p^2; the giant steps
+    are F_p^2 products and the inverse is the conjugate (unitary)."""
+    bound = tables.bound
+    batch = tuple(csk.shape[2:])
+    gamma = tables.gamma_inv_gt.reshape((2, ctx.L, 1) + (1,) * len(batch))
+    z = torch.stack([csk, fp2.conj(ctx, csk)], dim=2)   # [2, L, 2, *batch]
+    auxs = [z]
+    for _ in range(bound):
+        z = fp2.mul(ctx, z, gamma)
+        auxs.append(z)
+    auxs = torch.stack(auxs, dim=2)                     # [2, L, C, 2, *b]
+    words = auxs.reshape((2 * ctx.L,) + tuple(auxs.shape[2:]))
+    hits, vals = _lookup(tables.table_gt, words)
+    return _signed_result(hits, vals, bound, fp2.is_one(ctx, csk))
+
+
 def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
                 base_inf):
     """G1 giant-step scan + lookup for csk in RNS form (RVals [2k, B], the
@@ -257,15 +322,8 @@ def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
     words = torch.cat([xl, yl], dim=0)                   # [2L, C, 2, B]
     hits, vals = _lookup(tables.table_g1, words)
     hits = hits * (1 - mask4)
-    found_p, m_p = _first_hit(hits[:, 0], vals[:, 0], bound)
-    found_n, m_n = _first_hit(hits[:, 1], vals[:, 1], bound)
-
     # csk == identity <=> m = 0 (candidate 0 is csk itself)
-    is_zero_ct = mask4[0, 0] | inf2[:B]
-    m_signed = torch.where(found_p.to(torch.bool), m_p, -m_n)
-    m_signed = torch.where(is_zero_ct.to(torch.bool),
-                           torch.zeros_like(m_signed), m_signed)
-    return is_zero_ct | found_p | found_n, m_signed
+    return _signed_result(hits, vals, bound, mask4[0, 0] | inf2[:B])
 
 
 def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):
@@ -303,13 +361,7 @@ def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):
     rl, il = limbs(Rs), limbs(Is)
     words = torch.cat([rl, il], dim=0)                   # [2L, C, 2, B]
     hits, vals = _lookup(tables.table_gt, words)
-    found_p, m_p = _first_hit(hits[:, 0], vals[:, 0], bound)
-    found_n, m_n = _first_hit(hits[:, 1], vals[:, 1], bound)
-
     # csk == 1 <=> m = 0: candidate 0 of the positive lane is csk
     one_ext = lb.expand_to(ctx.one, rl[:, 0, 0].shape)
     is_zero_ct = lb.eq(rl[:, 0, 0], one_ext) & lb.is_zero(il[:, 0, 0])
-    m_signed = torch.where(found_p.to(torch.bool), m_p, -m_n)
-    m_signed = torch.where(is_zero_ct.to(torch.bool),
-                           torch.zeros_like(m_signed), m_signed)
-    return is_zero_ct | found_p | found_n, m_signed
+    return _signed_result(hits, vals, bound, is_zero_ct)

@@ -10,7 +10,9 @@ madd is complete (v = O, b = O, v == b via 2b, v == -b, by lane selects),
 so the limb ladders and the re-randomizing additions are total functions.
 The port's hot G1 paths run in RNS (ops/rns_pairing.py); these limb forms
 serve the L1 re-randomization (fixed_base_mul over Q's table), the wide
-L1 MultConst (scalar_mul) and their normalize.
+L1 MultConst (scalar_mul) and their normalize, and under
+BGNParams(rns_miller="0") every G1 op (Encrypt, the L1 ops, the L1
+decrypt's C^q1 and giant steps).
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ def to_jac(ctx: MontCtx, a: AffinePoint) -> JacPoint:
 
 def normalize(ctx: MontCtx, j: JacPoint, rns=None) -> AffinePoint:
     """Jacobian -> canonical affine via the batch inversion of Z.  rns:
-    an RNSCtx, whose pow_loop kernel then runs the batch's one Fermat
-    inversion (rns_pairing.mont_inv_rns), as the JAX package does on the
-    TPU; without it, the limb chain mont_inv."""
+    an RNSCtx; when the RNS path handles the key (pairing.use_rns), its
+    pow_loop kernel runs the batch's one Fermat inversion
+    (rns_pairing.mont_inv_rns), as the JAX package does on the TPU;
+    otherwise the limb chain mont_inv."""
     L = ctx.L
     zflat = j.Z.reshape(L, -1)
     inv_fn = None
-    if rns is not None:
+    from . import pairing as pairing_mod
+    if pairing_mod.use_rns(rns):
         from .rns_pairing import mont_inv_rns
 
         def inv_fn(t):

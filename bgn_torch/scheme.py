@@ -14,6 +14,11 @@ ladders, the L1 Add/Sub and the decrypts run in RNS (ops/rns_pairing.py);
 L2 Add/Sub, the re-randomization of a non-deterministic key (Q^r and
 e(Q, Q)^r), the complete L1 MultConst ladder and encrypt_device's
 sampler run on limbs through the CIOS product (fieldcore/montgomery.py).
+Under config.BGNParams(rns_miller="0") (pairing.use_rns false) every op
+takes its limb branch, where the JAX package takes it: the limb
+pairing (ops/pairing.py, the fused digit-domain Miller loop or the limb
+one), the limb window chains over P's and Q's limb tables, complete limb
+additions, limb powers and the limb giant-step scans.
 
 Entry points take `device=` and default to "cuda"; tests pass
 device="cpu", where the kernel wrappers run their plain PyTorch versions.
@@ -62,22 +67,28 @@ _WINDOW_RADIX = 1 << _WINDOW_BITS
 
 class PublicDeviceKey(nn.Module):
     """Device-resident public key material.  Buffers: the generators P, Q
-    (limbs), the Miller digits n_naf, the bits of l (final exp), pair_qq =
-    e(Q, Q) [2, L] (L2 re-randomization), the radix-256 window tables of P
-    and Q as RNS residues [J, R, 2k] (row d of window j = base^(d*256^j),
-    row 0 the identity), laid out so that the dual_ladder kernel reads a
-    row as one contiguous run, and Q's table as limbs, q_tab = AffinePoint
-    [L, J, R] (the limb fixed-base ladder of the L1 re-randomization)."""
+    (limbs), the bits of n (key_bits of them, MSB first: the limb Miller
+    loops) and its Miller digits n_naf (the RNS loop), the bits of l
+    (final exp), pair_qq = e(Q, Q) [2, L] (L2 re-randomization), the
+    radix-256 window tables of P and Q as RNS residues [J, R, 2k] (row d
+    of window j = base^(d*256^j), row 0 the identity), laid out so that
+    the dual_ladder kernel reads a row as one contiguous run, and the same
+    tables as limbs, p_tab and q_tab = AffinePoint [L, J, R] (the limb
+    fixed-base ladders: the L1 re-randomization, and Encrypt under
+    rns_miller="0")."""
 
     def __init__(self, ctx: MontCtx, rns: RNSCtx, P: AffinePoint,
-                 Q: AffinePoint, n_naf, l_bits, pair_qq, p_win, q_win,
-                 q_tab: AffinePoint):
+                 Q: AffinePoint, n_bits, n_naf, l_bits, pair_qq, p_win,
+                 q_win, p_tab: AffinePoint, q_tab: AffinePoint):
         super().__init__()
         self.ctx = ctx
         self.rns = rns
-        for name, pt in (("P", P), ("Q", Q), ("q_tab", q_tab)):
+        for name, pt in (("P", P), ("Q", Q), ("p_tab", p_tab),
+                         ("q_tab", q_tab)):
             for f in AffinePoint._fields:
                 self.register_buffer(f"{name}_{f}", getattr(pt, f))
+        self.register_buffer("n_bits",
+                             torch.as_tensor(n_bits, dtype=torch.int64))
         self.register_buffer("n_naf", torch.as_tensor(n_naf, dtype=torch.int64))
         self.register_buffer("l_bits",
                              torch.as_tensor(l_bits, dtype=torch.int64))
@@ -94,6 +105,10 @@ class PublicDeviceKey(nn.Module):
     @property
     def Q(self) -> AffinePoint:
         return AffinePoint(self.Q_x, self.Q_y, self.Q_inf)
+
+    @property
+    def p_tab(self) -> AffinePoint:
+        return AffinePoint(self.p_tab_x, self.p_tab_y, self.p_tab_inf)
 
     @property
     def q_tab(self) -> AffinePoint:
@@ -222,16 +237,20 @@ class BGNPublicKey:
         fp2_pow_vec_rns).  The G1 ladder's incomplete additions are safe
         only while 2^nbits < min(q1, q2); an L1 exponent wider than
         key_bits//2 - 2 bits (only |k| ~ n) takes the complete limb
-        ladder (curve.scalar_mul)."""
+        ladder (curve.scalar_mul), as every exponent does, at both
+        levels, under rns_miller="0"."""
         ks = _const_list(ks, a.batch_shape)
         k_bits, k_neg = _signed_bits(ks, self.n)
         k_bits = k_bits.reshape((k_bits.shape[0],) + tuple(a.batch_shape))
         k_neg = k_neg.reshape(tuple(a.batch_shape))
+        rns = pairing_mod.use_rns(self.dev.rns)
         if a.level2:
-            out = _mult_const_l2_rns_kernel(self.dev, a.data, k_bits, k_neg)
+            kern = (_mult_const_l2_rns_kernel if rns
+                    else _mult_const_l2_kernel)
+            out = kern(self.dev, a.data, k_bits, k_neg)
             return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
         kern = (_mult_const_l1_rns_kernel
-                if k_bits.shape[0] <= self.key_bits // 2 - 2
+                if rns and k_bits.shape[0] <= self.key_bits // 2 - 2
                 else _mult_const_l1_kernel)
         out = kern(self.dev, a.data, k_bits, k_neg)
         return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
@@ -291,9 +310,10 @@ class BGNSecretKey:
         self.key = a1_params.q1
         self.r = r
         self.poly_base = poly_base
+        nb = a1_params.q1.bit_length()
+        self.q1_bits = lb.int_to_bits(a1_params.q1, nb)
         self.q1_naf, _ = _exp_digits(
-            a1_params.q1, a1_params.q1.bit_length(),
-            (a1_params.q1, a1_params.q2, a1_params.n))
+            a1_params.q1, nb, (a1_params.q1, a1_params.q2, a1_params.n))
 
     def decrypt(self, ct: "Ciphertext", pk: BGNPublicKey,
                 tables: bsgs_mod.DecryptTables):
@@ -313,7 +333,7 @@ class BGNSecretKey:
                             tables: bsgs_mod.DecryptTables):
         """Returns (values int64 [batch], ok bool [batch])."""
         kern = _decrypt_l2_kernel if ct.level2 else _decrypt_l1_kernel
-        found, m = kern(pk.dev, tables, ct.data, self.q1_naf)
+        found, m = kern(pk.dev, tables, self.q1_bits, ct.data, self.q1_naf)
         return (np.atleast_1d(m.cpu().numpy()).astype(np.int64),
                 np.atleast_1d(found.cpu().numpy()).astype(bool))
 
@@ -380,20 +400,27 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
     ctx = mg.make_mont_ctx(params.p, L=L, device=device)
     rns = _make_rns(params.p, L, device)
     n_naf, _ = _exp_digits(params.n, key_bits, (params.q1, params.q2, params.n))
+    p_rows = _window_table(gk.P, params.p, key_bits)
     q_rows = _window_table(gk.Q, params.p, key_bits)
+
+    def limb_table(rows):
+        return convert.affine_from_host(
+            ctx, rows, batch_shape=(len(rows) // _WINDOW_RADIX,
+                                    _WINDOW_RADIX))
+
     dev = PublicDeviceKey(
         ctx=ctx, rns=rns,
         P=convert.point_from_host(ctx, gk.P),
         Q=convert.point_from_host(ctx, gk.Q),
+        n_bits=lb.int_to_bits(params.n, key_bits),
         n_naf=n_naf,
         l_bits=lb.int_to_bits(params.l, 32),
         pair_qq=convert.fp2_single_from_host(
             ctx, hm.tate_pairing(gk.Q, gk.Q, params)),
-        p_win=_win_rns(params.p, L, _window_table(gk.P, params.p, key_bits)),
+        p_win=_win_rns(params.p, L, p_rows),
         q_win=_win_rns(params.p, L, q_rows),
-        q_tab=convert.affine_from_host(
-            ctx, q_rows, batch_shape=(len(q_rows) // _WINDOW_RADIX,
-                                      _WINDOW_RADIX)),
+        p_tab=limb_table(p_rows),
+        q_tab=limb_table(q_rows),
     ).to(device)
     pk = BGNPublicKey(key_bits=key_bits, n=params.n, l=params.l, p=params.p,
                       msg_space=msg_space, deterministic=deterministic,
@@ -403,7 +430,8 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
 
 
 def _make_rns(p: int, L: int, device) -> RNSCtx:
-    """RNS context for the key; the port has only the RNS path."""
+    """RNS context for the key (every key has one; rns_miller="0" leaves
+    it unused)."""
     return rn.make_rns_ctx(p, L=L, device=device)
 
 
@@ -621,22 +649,38 @@ def _device_r_digits(sampler_ctx: MontCtx, generator, batch: int, J: int):
     return torch.stack(parts, dim=1).reshape(-1, batch)[:J]
 
 
+def _fixed_base(dev: PublicDeviceKey, base: str, digits) -> curve.JacPoint:
+    """base^e (base "p" or "q") from its window table: the RNS window
+    chain (rns_pairing.fixed_base_mul_rns) on the RNS path, complete limb
+    additions over the limb table otherwise."""
+    if pairing_mod.use_rns(dev.rns):
+        return rns_pairing.fixed_base_mul_rns(
+            dev.ctx, dev.rns, getattr(dev, f"{base}_win"), digits)
+    return curve.fixed_base_mul(dev.ctx, getattr(dev, f"{base}_tab"), digits)
+
+
+def _p_pow(dev: PublicDeviceKey, m_digits, m_neg) -> curve.JacPoint:
+    """P^m: P^|m| from _fixed_base, Y negated where m < 0."""
+    g = _fixed_base(dev, "p", m_digits)
+    neg = torch.as_tensor(m_neg, device=g.Y.device)
+    return curve.JacPoint(g.X, lb.select(neg, mg.mod_neg(dev.ctx, g.Y), g.Y),
+                          g.Z)
+
+
 def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
     """Both window chains + the g +- h combine (dual_ladder kernel), then
     the RNS normalize (batch-inversion scans + one pow_loop).  In step
-    mode (rns_pallas="1") the JAX package's split path instead: the two
-    window chains apart, h normalized, one complete limb madd and the limb
-    normalize; the canonical affine result is the same.  Digits: host
-    arrays or device tensors."""
-    if rns_pairing._mode() == "step":
+    mode (rns_pallas="1") and under rns_miller="0" the JAX package's split
+    path instead: the two window chains apart (_fixed_base), h
+    normalized, one complete limb madd and the normalize; the canonical
+    affine result is the same.  Digits: host arrays or device tensors."""
+    if rns_pairing._mode() == "step" or not pairing_mod.use_rns(dev.rns):
         ctx = dev.ctx
-        g = rns_pairing.fixed_base_mul_rns(ctx, dev.rns, dev.p_win, m_digits)
-        neg = torch.as_tensor(m_neg, device=g.Y.device)
-        g = curve.JacPoint(g.X, lb.select(neg, mg.mod_neg(ctx, g.Y), g.Y),
-                           g.Z)
-        h = rns_pairing.fixed_base_mul_rns(ctx, dev.rns, dev.q_win, r_digits)
-        h_aff = curve.normalize(ctx, h, rns=dev.rns)
-        return curve.normalize(ctx, curve.madd(ctx, g, h_aff), rns=dev.rns)
+        h_aff = curve.normalize(ctx, _fixed_base(dev, "q", r_digits),
+                                rns=dev.rns)
+        return curve.normalize(
+            ctx, curve.madd(ctx, _p_pow(dev, m_digits, m_neg), h_aff),
+            rns=dev.rns)
     device = dev.n_naf.device
     Jm = m_digits.shape[0]
     dig = torch.cat([torch.as_tensor(m_digits, device=device),
@@ -649,7 +693,11 @@ def _encrypt_kernel(dev: PublicDeviceKey, m_digits, m_neg, r_digits):
 
 def _encrypt_det_kernel(dev: PublicDeviceKey, m_digits, m_neg):
     """P^|m| from P's window table (window_ladder_tab kernel), Y negated
-    where m < 0, then the RNS normalize."""
+    where m < 0, then the RNS normalize; under rns_miller="0" the limb
+    chain over P's limb table and the limb normalize."""
+    if not pairing_mod.use_rns(dev.rns):
+        return curve.normalize(dev.ctx, _p_pow(dev, m_digits, m_neg),
+                               rns=dev.rns)
     X, Y, Z = rns_pairing.fixed_base_mul_rns(dev.ctx, dev.rns, dev.p_win,
                                              m_digits, raw=True)
     Yn = rns_pairing.neg_y_rns(dev.rns, Y.v, Y.bound, m_neg)
@@ -657,12 +705,16 @@ def _encrypt_det_kernel(dev: PublicDeviceKey, m_digits, m_neg):
 
 
 def _add_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
-    return rns_pairing.add_complete_rns(dev.ctx, dev.rns, a, b)
+    """The complete group law in RNS; under rns_miller="0" the complete
+    limb addition and the limb normalize."""
+    if pairing_mod.use_rns(dev.rns):
+        return rns_pairing.add_complete_rns(dev.ctx, dev.rns, a, b)
+    return curve.normalize(dev.ctx, curve.add_affine(dev.ctx, a, b),
+                           rns=dev.rns)
 
 
 def _sub_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
-    return rns_pairing.add_complete_rns(dev.ctx, dev.rns, a,
-                                        curve.neg_affine(dev.ctx, b))
+    return _add_l1_kernel(dev, a, curve.neg_affine(dev.ctx, b))
 
 
 def _add_l2_kernel(dev: PublicDeviceKey, a, b):
@@ -675,8 +727,8 @@ def _sub_l2_kernel(dev: PublicDeviceKey, a, b):
 
 
 def _make_l2_kernel(dev: PublicDeviceKey, a: AffinePoint):
-    return pairing_mod.pairing(dev.ctx, a, dev.P, dev.n_naf, dev.l_bits,
-                               rns=dev.rns)
+    return pairing_mod.pairing(dev.ctx, a, dev.P, dev.n_bits, dev.l_bits,
+                               rns=dev.rns, n_naf=dev.n_naf)
 
 
 def _mult_const_l1_kernel(dev: PublicDeviceKey, a: AffinePoint, k_bits,
@@ -708,9 +760,17 @@ def _mult_const_l2_rns_kernel(dev: PublicDeviceKey, a, k_bits, k_neg):
     return fp2.select(mask, fp2.conj(dev.ctx, r), r)
 
 
+def _mult_const_l2_kernel(dev: PublicDeviceKey, a, k_bits, k_neg):
+    """a^k on limbs (per-element square-and-multiply), conjugated where
+    k < 0 (GT is unitary)."""
+    r = fp2.pow_bits(dev.ctx, a, k_bits)
+    mask = torch.as_tensor(k_neg, device=r.device)
+    return fp2.select(mask, fp2.conj(dev.ctx, r), r)
+
+
 def _mult_kernel(dev: PublicDeviceKey, a: AffinePoint, b: AffinePoint):
-    return pairing_mod.pairing(dev.ctx, a, b, dev.n_naf, dev.l_bits,
-                               rns=dev.rns)
+    return pairing_mod.pairing(dev.ctx, a, b, dev.n_bits, dev.l_bits,
+                               rns=dev.rns, n_naf=dev.n_naf)
 
 
 def _rerand_l1_kernel(dev: PublicDeviceKey, pt: AffinePoint, r_digits):
@@ -728,9 +788,13 @@ def _rerand_l2_kernel(dev: PublicDeviceKey, z, r_bits):
     return fp2.mul(dev.ctx, z, mask)
 
 
-def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, z, q1_naf):
+def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, q1_bits, z, q1_naf):
     """csk = z^q1 (fp2_pow_loop over the signed digits: L2 ciphertexts
-    are unitary), then the RNS giant-step scan and digest lookup."""
+    are unitary), then the RNS giant-step scan and digest lookup; under
+    rns_miller="0" the limb power over the bits of q1 and the limb scan."""
+    if not pairing_mod.use_rns(dev.rns):
+        return bsgs_mod.bsgs_gt(dev.ctx, tables,
+                                fp2.pow_bits(dev.ctx, z, q1_bits))
     batch_shape = tuple(z.shape[2:])
     L = dev.ctx.L
     zf = z.reshape(2, L, -1)
@@ -740,9 +804,15 @@ def _decrypt_l2_kernel(dev: PublicDeviceKey, tables, z, q1_naf):
     return found.reshape(batch_shape), m.reshape(batch_shape)
 
 
-def _decrypt_l1_kernel(dev: PublicDeviceKey, tables, pt: AffinePoint, q1_naf):
+def _decrypt_l1_kernel(dev: PublicDeviceKey, tables, q1_bits,
+                       pt: AffinePoint, q1_naf):
     """csk = C^q1 (ladder_loop kernel), then the RNS giant-step scan and
-    digest lookup; only the final affine candidates leave RNS."""
+    digest lookup; only the final affine candidates leave RNS.  Under
+    rns_miller="0": C^q1 by the complete limb double-and-add over the
+    bits of q1 (bgn.go:223), then the limb scan."""
+    if not pairing_mod.use_rns(dev.rns):
+        return bsgs_mod.bsgs_g1(dev.ctx, tables,
+                                curve.scalar_mul(dev.ctx, pt, q1_bits))
     batch_shape = tuple(pt.inf.shape)
     Xr, Yr, Zr = rns_pairing.scalar_mul_rns(dev.ctx, dev.rns, pt, q1_naf)
     found, m = bsgs_mod.bsgs_g1_rns(dev.ctx, dev.rns, tables, Xr, Yr, Zr,

@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py [--batch 8192] [--decrypt-batch 2048] [--seed 1]
                           [--wide-batch 512] [--big-batch 16]
+                          [--limb-batch 64]
 
 Phases, each of which raises on failure (the script then exits nonzero):
   1. the card (nvidia-smi name and power limit), torch/CUDA versions, and
      the build of every kernel in bgn_torch/csrc with nvcc's -Xptxas -v
      report (registers, shared memory, spills) for every instantiation of
      the RNS kernels, S = 4 slots (k <= 64), S = 6 (k <= 96) and S = 12
-     (k <= 192, the extension matrices in device memory), and mont_mul;
+     (k <= 192, the extension matrices in device memory), mont_mul and
+     the two digit-domain Miller step kernels (limb caps 40 and 64);
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
@@ -20,7 +22,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (torch.equal: the kernels are exact integer arithmetic), with the
      kernel's and the plain version's times (CUDA events); then a chain
      of step-kernel launches (the per-step configuration's host loop)
-     against each loop kernel's output, bit for bit;
+     against each loop kernel's output, bit for bit; the digit-domain
+     Miller steps (miller_dbl_digits, miller_add_digits) at L = 34 on the
+     512-bit key's Miller state at N = batch, and at L = 64 (the widest
+     the fused dispatch sends, 2L + 1 = 129) at N = 512 over random
+     canonical digits modulo a 1000-bit prime, each also timed at 128
+     threads per block;
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -53,12 +60,29 @@ Phases, each of which raises on failure (the script then exits nonzero):
      decrypt-batch lanes; every lane checked; each step kernel must be
      launched and the five loop-only kernels must not; ops/s of a first
      and a second call;
+  4g. the limb-domain configuration, BGNParams(rns_miller="0"), on phase
+     2's key: Encrypt -> Mult (the fused Miller loop through the two digit
+     kernels) -> DecryptL2 at batch lanes on phase 4's inputs, Encrypt
+     and Mult torch.equal to phase 4's outputs; EncryptDeterministic,
+     Add, Sub, Neg, MultConst (L1 with negative k, L2), MakeL2 and the L1
+     decrypt at decrypt-batch lanes, each torch.equal to the default
+     configuration's output on the same inputs; phase 4d's
+     non-deterministic key at limb-batch lanes (the same r, so equal to
+     phase 4d's lanes); the fused Miller loop torch.equal to
+     fused_miller=False at limb-batch lanes; phase 4c's 1024-bit key
+     (L = 66: the limb Miller loop through mont_mul) at limb-batch lanes,
+     Mult torch.equal to phase 4c's; every lane decrypted and checked;
+     the digit-step launches of one Mult checked against the bits of n;
+     no RNS kernel launched in the phase; ops/s of a first and second
+     call;
   5. one call of each op under torch.profiler (the re-randomized Mult and
-     L2 Add, and the step-mode Mult and Encrypt, included): device busy
-     time, idle share, the costliest device kernels and the wrappers'
-     launches.
+     L2 Add, the step-mode Mult and Encrypt, and the limb-mode Mult and
+     Encrypt included): device busy time, idle share, the costliest
+     device kernels and the wrappers' launches.
 The line before the last is one JSON object {"kernels": [...]} (times,
-launches, bounds); the last line is {"ok": true, "device": {...}}.
+launches, bounds; one row per TPU kernel, 17 in all, mont_mul's under
+both TPU forms it replaces); the last line is {"ok": true, "device":
+{...}}.
 There is no CPU path: without a CUDA device the script exits nonzero
 before printing any result.
 """
@@ -82,6 +106,14 @@ PEAK_BF16_S = 989e12
 # 1.98 GHz (the Hopper white paper's 33.5 INT32 TOPS counts a
 # multiply-add as two operations).
 PEAK_INT32_MAD_S = 16.7e12
+
+
+def mont_mads(L: int) -> int:
+    """32-bit multiply-adds of one Montgomery product of L 16-bit limbs
+    (R = 2^(16L)): the least a CIOS needs, run on ceil(L/2) 32-bit limbs
+    (the same R for even L), 2 ceil(L/2)^2 wide products of two
+    instructions each (low and high halves)."""
+    return 4 * ((L + 1) // 2) ** 2
 # ~50 ms of the card's clock (1.98 GHz): covers the host's enqueue of 50
 # step-kernel launches
 SLEEP_CYCLES = 100_000_000
@@ -123,7 +155,13 @@ REPLACES = {
     # mont_mul_pallas, :190): the TPU split them only to avoid int32
     # multiplies
     "mont_mul": "bgn_tpu/fieldcore/pallas_mont.py:127",
+    "miller_dbl_digits": "bgn_tpu/ops/pallas_pairing.py:329",
+    "miller_add_digits": "bgn_tpu/ops/pallas_pairing.py:355",
 }
+# the row of mont_mul_pallas (:190): the same kernel and numbers as
+# mont_mul's row, under the TPU kernel it also replaces
+MONT_U32 = ("mont_mul (mont_mul_pallas form)",
+            "bgn_tpu/fieldcore/pallas_mont.py:190")
 # kernels each main path must launch (window_ladder is on no path: the
 # JAX package has no caller of window_ladder_pallas either)
 MAIN_PATH = ("miller_loop", "pow_loop", "fp2_pow_loop", "dual_ladder")
@@ -138,6 +176,9 @@ STEP_PATH = ("dbl_step", "add_step", "pt_dbl", "pt_add", "pow_step",
              "fp2_pow_step")
 LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
              "window_ladder_tab")
+# the limb-domain configuration: the digit-domain Miller steps and
+# mont_mul, and none of the 13 RNS kernels
+DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
 
 
 def log(msg: str) -> None:
@@ -204,7 +245,7 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     lengthens the wall time, so the idle share is an upper estimate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for wfn in wrappers:
+    for wfn in wrappers.values():
         wfn.launches = 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -225,7 +266,8 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
         log(f"  {ms:9.2f} ms  x{n:<6d} {name[:70]}")
-    log("  launches: " + str({wfn.__name__: wfn.launches for wfn in wrappers
+    log("  launches: " + str({name: wfn.launches
+                              for name, wfn in wrappers.items()
                               if wfn.launches}))
 
 
@@ -262,6 +304,7 @@ def main() -> None:
     ap.add_argument("--decrypt-batch", type=int, default=2048)
     ap.add_argument("--wide-batch", type=int, default=512)
     ap.add_argument("--big-batch", type=int, default=16)
+    ap.add_argument("--limb-batch", type=int, default=64)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
 
@@ -277,10 +320,14 @@ def main() -> None:
     from bgn_torch.config import BGNParams
     from bgn_torch.fieldcore import cuda_mont, limbs as lb, montgomery as mg
     from bgn_torch.fieldcore import rns as rn
-    from bgn_torch.ops import cuda_rns, rns_pairing as rp
+    from bgn_torch.ops import cuda_pairing, cuda_rns, rns_pairing as rp
     from bgn_torch.utils import convert, rng as rng_mod
 
-    wrappers = cuda_rns.WRAPPERS + (cuda_mont.mont_mul,)
+    # kernel name -> wrapper (its launch count)
+    wrappers = {w.__name__: w for w in cuda_rns.WRAPPERS}
+    wrappers.update(mont_mul=cuda_mont.mont_mul,
+                    miller_dbl_digits=cuda_pairing.dbl_step,
+                    miller_add_digits=cuda_pairing.add_step)
     step_wrappers = tuple(getattr(cuda_rns, name) for name in STEP_PATH)
 
     def in_step_mode(fn):
@@ -290,6 +337,16 @@ def main() -> None:
             return fn()
         finally:
             BGNParams(rns_pallas="loop").apply_kernel_modes()
+
+    def in_limb_mode(fn, fused=True):
+        """fn() under BGNParams(rns_miller="0", fused_miller=fused), the
+        default modes after."""
+        BGNParams(rns_miller="0", fused_miller=fused).apply_kernel_modes()
+        try:
+            return fn()
+        finally:
+            BGNParams(rns_miller="auto", fused_miller=True) \
+                .apply_kernel_modes()
 
     dev = torch.device("cuda")
     t_start = phase_t = time.time()
@@ -314,9 +371,11 @@ def main() -> None:
     _build.build(force=True)
     _build.library()
     log(f"build: {time.time() - t0:.1f} s (nvcc, {len(list(_build.CSRC.glob('*.cu')))} "
-        "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots)")
+        "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots, "
+        "each digit kernel for limb caps 40 and 64)")
     for r in ptxas_table(_build.BUILD_INFO["ptxas"]):
-        log(f"  ptxas {r['kernel']:<18s} S={r['S']}: {r['registers']} "
+        tag = "cap" if "digits" in r["kernel"] else "S"
+        log(f"  ptxas {r['kernel']:<18s} {tag}={r['S']}: {r['registers']} "
             f"registers, stack {r['stack']} B, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     for k_ in (45, 90, 185):
@@ -622,18 +681,66 @@ def main() -> None:
                 check("mont_mul", f"L={Lm}, N={n}{label}",
                       lambda c=mctx, y_=yy: cuda_mont.mont_mul(c, x, y_),
                       lambda c=mctx, y_=yy: cuda_mont.mont_mul_plain(c, x, y_),
-                      (0, 0, 2 * Lm * Lm * n), nbytes, bits)
+                      (0, 0, mont_mads(Lm) * n), nbytes, bits)
 
     mont_checks(args.seed + 8)
-    phase_done("3 (kernels, 512-bit; mont_mul at 512, 1024, 2048 bits)")
+
+    def digit_checks(seed):
+        """The two digit-domain Miller steps against their plain versions:
+        at L = 34 on the 512-bit key's Miller state (ciphertexts as A and
+        as B, V one doubling in) at B lanes, and at L = 64 over random
+        canonical digits modulo a 1000-bit prime at 512 lanes; each also
+        timed at 128 threads per block (the wrappers' default is 64)."""
+        drng = random.Random(seed)
+        D = cuda_pairing.to_digits
+        pts = pk.encrypt_with_randomness(
+            [drng.randrange(340) for _ in range(B)],
+            [drng.randrange(pk.n) for _ in range(B)]).data
+        one = D(ctx.one[:, None].expand(L, B))
+        A = (D(pts.x), D(pts.y))
+        Bq = (D(pts.x.roll(1, dims=1)), D(pts.y.roll(1, dims=1)))
+        V, f = cuda_pairing.dbl_step(ctx, (*A, one),
+                                     (one, torch.zeros_like(one)), Bq)
+        cases = [(ctx, V, f, A, Bq, 512)]
+        pm = hm.gen_prime(1000, rng=drng)
+        mctx = mg.make_mont_ctx(pm, L=64, device=dev)
+
+        def rnd(n=512):
+            return D(torch.as_tensor(lb.ints_to_limbs(
+                [drng.randrange(pm) for _ in range(n)], 64), device=dev))
+
+        cases.append((mctx, (rnd(), rnd(), rnd()), (rnd(), rnd()),
+                      (rnd(), rnd()), (rnd(), rnd()), 1000))
+        for c, V, f, A, Bq, bits in cases:
+            Lc, n = c.L, V[0].shape[1]
+            for name, fn, plain, fargs, products, arrays in (
+                    ("miller_dbl_digits", cuda_pairing.dbl_step,
+                     cuda_pairing.dbl_step_plain, (V, f, Bq), 21, 12),
+                    ("miller_add_digits", cuda_pairing.add_step,
+                     cuda_pairing.add_step_plain, (V, f, A, Bq), 17, 14)):
+                check(name, f"L={Lc}, N={n}",
+                      lambda fn=fn, c=c, a=fargs: sum(fn(c, *a), ()),
+                      lambda fn=plain, c=c, a=fargs: sum(fn(c, *a), ()),
+                      (0, 0, products * mont_mads(Lc) * n),
+                      arrays * 2 * Lc * f32 * n, bits)
+                cuda_pairing.THREADS = 128
+                t128 = cuda_ms(lambda fn=fn, c=c, a=fargs: fn(c, *a), torch)
+                cuda_pairing.THREADS = 64
+                results[name][-1]["ms_128_threads"] = t128
+                log(f"  {name} L={Lc}, N={n} at 128 threads per block: "
+                    f"{t128:.3f} ms [{card}]")
+
+    digit_checks(args.seed + 9)
+    phase_done("3 (kernels, 512-bit; mont_mul at 512, 1024, 2048 bits; "
+               "digit steps at L = 34 and 64)")
 
     # -- 4. the main path end to end ---------------------------------------
     def zero_counts():
-        for wfn in wrappers:
+        for wfn in wrappers.values():
             wfn.launches = 0
 
     def read_counts(path_name, must):
-        counts = {wfn.__name__: wfn.launches for wfn in wrappers}
+        counts = {name: wfn.launches for name, wfn in wrappers.items()}
         for name in must:
             if counts[name] < 1:
                 raise AssertionError(f"{name} was not launched on the "
@@ -789,7 +896,7 @@ def main() -> None:
                      ("DecryptL2", Bw, t_dec2_w), ("Add", Bw, t_add_w),
                      ("Decrypt (L1)", Bw, t_dec1_w)):
         log(f"1024-bit {op} {n / t:.1f} ops/s first call (B={n}) [{card}]")
-    del pk2, sk2, tables2, a2, b2, prod2, add2
+    del add2                   # the 1024-bit key stays for phase 4g
     phase_done("4c (1024-bit)")
 
     # -- 4d. the limb path: every op of a non-deterministic key ----------
@@ -1006,12 +1113,149 @@ def main() -> None:
     BGNParams(rns_pallas="loop").apply_kernel_modes()
     phase_done("4f (per-step configuration)")
 
+    # -- 4g. the limb-domain configuration on phase 2's key --------------
+    def ct_equal(u, v):
+        if u.level2:
+            return torch.equal(u.data, v.data)
+        return all(torch.equal(x, y) for x, y in zip(u.data, v.data))
+
+    BGNParams(rns_miller="0").apply_kernel_modes()
+    zero_counts()
+    a_g, t_enc_g = timed(lambda: pk.encrypt_with_randomness(ms, rs))
+    b_g, _ = timed(lambda: pk.encrypt_with_randomness(ks, krs))
+    if not (ct_equal(a_g, a) and ct_equal(b_g, b)):
+        raise AssertionError("limb-mode Encrypt != phase 4's Encrypt")
+    digit_names = DIGIT_PATH[:2]
+    before = {nm: wrappers[nm].launches for nm in digit_names}
+    prod_g, t_mult_g = timed(lambda: pk.mult(a_g, b_g))
+    per_mult = {nm: wrappers[nm].launches - before[nm] for nm in digit_names}
+    if not ct_equal(prod_g, prod):
+        raise AssertionError("limb-mode Mult != phase 4's Mult")
+    log(f"limb mode: Encrypt and Mult equal phase 4's outputs on all {B} "
+        "lanes")
+    nbits = [int(v) for v in pk.dev.n_bits.cpu().tolist()]
+    first = nbits[:-1].index(1)
+    want_steps = {"miller_dbl_digits": len(nbits) - first - 1,
+                  "miller_add_digits": sum(nbits[first + 1:-1])}
+    if per_mult != want_steps:
+        raise AssertionError(f"digit steps per Mult {per_mult}, the bits "
+                             f"of n give {want_steps}")
+    log(f"limb mode: one Mult launched {per_mult['miller_dbl_digits']} "
+        f"doubling and {per_mult['miller_add_digits']} addition steps (n "
+        f"has {pk.n.bit_length()} bits and popcount {bin(pk.n).count('1')}"
+        ": bits - 1 and popcount - 2)")
+    t_dec_g = decrypt_all(sk, pk, tables, prod_g,
+                          [m * kk for m, kk in zip(ms, ks)],
+                          "limb-mode DecryptL2 (m*k)", Bd)
+    a_l, b_l = a_g[:Bd], b_g[:Bd]
+    ms_l, ks_l, sg_l = ms[:Bd], ks[:Bd], signs[:Bd]
+    kn_l = [sg * kk for sg, kk in zip(sg_l, ks_l)]
+    ops_g = {}
+    for op, fn, want, ref in (
+            ("EncryptDeterministic", lambda: pk.encrypt_deterministic(ms_l),
+             ms_l, "EncryptDeterministic"),
+            ("Add", lambda: pk.add(a_l, b_l),
+             [m + kk for m, kk in zip(ms_l, ks_l)], "Add"),
+            ("Sub", lambda: pk.sub(a_l, b_l),
+             [m - kk for m, kk in zip(ms_l, ks_l)], "Sub"),
+            ("Neg", lambda: pk.neg(a_l), [-m for m in ms_l], "Neg"),
+            ("MultConst", lambda: pk.mult_const(a_l, kn_l),
+             [m * kk for m, kk in zip(ms_l, kn_l)], None),
+            ("MakeL2", lambda: pk.make_l2(a_l), ms_l, "MakeL2"),
+            ("MultConstL2", lambda: pk.mult_const(prod_g[:Bd], sg_l),
+             [sg * m * kk for sg, m, kk in zip(sg_l, ms_l, ks_l)],
+             "MultConstL2")):
+        out, t1 = timed(fn)
+        if ref is not None and not ct_equal(out, ops[ref][1][:Bd]):
+            raise AssertionError(f"limb-mode {op} != the default "
+                                 "configuration's")
+        t_d = decrypt_all(sk, pk, tables, out, want, f"limb-mode {op}", Bd)
+        ops_g[op] = (fn, t1, t_d)
+    log(f"limb mode: EncryptDeterministic, Add, Sub, Neg, MakeL2 and "
+        f"MultConstL2 equal the default configuration's on {Bd} lanes")
+
+    # phase 4d's non-deterministic key: the same r, so phase 4d's lanes
+    Bn = args.limb_batch
+    nd_ops = {
+        "Encrypt": (lambda g: pkr.encrypt(msr[:Bn], rng=g), ar, msr),
+        "Mult": (lambda g: pkr.mult(ar[:Bn], br[:Bn], rng=g),
+                 outs["Mult"], wants["Mult"]),
+        "Add": (lambda g: pkr.add(ar[:Bn], br[:Bn], rng=g), outs["Add"],
+                wants["Add"]),
+        "Neg": (lambda g: pkr.neg(ar[:Bn], rng=g), outs["Neg"],
+                wants["Neg"]),
+        "MultConst": (lambda g: pkr.mult_const(ar[:Bn], ksr[:Bn], rng=g),
+                      outs["MultConst"], wants["MultConst"]),
+        "MultConst n-1": (lambda g: pkr.mult_const(ar[:Bn], nr - 1, rng=g),
+                          outs["MultConst n-1"], wants["MultConst n-1"]),
+        "MultConstL2": (lambda g: pkr.mult_const(prodr[:Bn], sgr[:Bn],
+                                                 rng=g),
+                        outs["MultConstL2"], wants["MultConstL2"]),
+    }
+    for name, (fn, ref, want) in nd_ops.items():
+        out = fn(random.Random(seeded[name][0]))
+        if not ct_equal(out, ref[:Bn]):
+            raise AssertionError(f"limb-mode re-randomized {name} != phase "
+                                 "4d's lanes")
+        decrypt_all(skr, pkr, tablesr, out, want[:Bn],
+                    f"limb-mode re-randomized {name}", Bn)
+    dv = pkr.encrypt_device(msr[:Bn],
+                            torch.Generator(device=dev).manual_seed(23))
+    decrypt_all(skr, pkr, tablesr, dv, msr[:Bn], "limb-mode EncryptDevice",
+                Bn)
+    log(f"limb mode: the non-deterministic key's ops equal phase 4d's "
+        f"first {Bn} lanes")
+
+    # the limb Miller loop: fused_miller=False, and a 1024-bit key (L = 66)
+    BGNParams(fused_miller=False).apply_kernel_modes()
+    prod_nf = pk.mult(a_g[:Bn], b_g[:Bn])
+    BGNParams(fused_miller=True).apply_kernel_modes()
+    if not ct_equal(prod_nf, prod_g[:Bn]):
+        raise AssertionError("fused_miller=False Mult != the fused Mult")
+    log(f"limb mode: the limb Miller loop equals the fused one on {Bn} "
+        "lanes")
+    prod2_g, t_mult2_g = timed(lambda: pk2.mult(a2[:Bn], b2[:Bn]))
+    if not ct_equal(prod2_g, prod2[:Bn]):
+        raise AssertionError("1024-bit limb-mode Mult != phase 4c's Mult")
+    t_dec2_g = decrypt_all(sk2, pk2, tables2, prod2_g,
+                           [m * kk for m, kk in zip(ms2[:Bn], ks2[:Bn])],
+                           "1024-bit limb-mode DecryptL2 (m*k)", Bn)
+    launches_digit = read_counts("limb-domain", DIGIT_PATH)
+    rns_launched = {nm: launches_digit[nm] for nm in wrappers
+                    if nm not in DIGIT_PATH and launches_digit[nm]}
+    if rns_launched:
+        raise AssertionError(f"RNS kernels launched in limb mode: "
+                             f"{rns_launched}")
+    log("limb mode: no launch of the 13 RNS kernels")
+    _, t_enc_g2 = timed(lambda: pk.encrypt_with_randomness(ms, rs))
+    _, t_mult_g2 = timed(lambda: pk.mult(a_g, b_g))
+    _, t_dec_g2 = timed(lambda: sk.decrypt(prod_g[:Bd], pk, tables))
+    for op, n, t1, t2 in (("Encrypt", B, t_enc_g, t_enc_g2),
+                          ("Mult", B, t_mult_g, t_mult_g2),
+                          ("DecryptL2", Bd, t_dec_g, t_dec_g2)):
+        log(f"limb-mode {op} {n / t1:.1f} ops/s first call, {n / t2:.1f} "
+            f"ops/s second call (B={n}) [{card}]")
+    for op, (fn, t1, t_d) in ops_g.items():
+        _, t2 = timed(fn)
+        log(f"limb-mode {op} {Bd / t1:.1f} ops/s first call, "
+            f"{Bd / t2:.1f} ops/s second call (B={Bd}); its decrypt "
+            f"{Bd / t_d:.1f} ops/s [{card}]")
+    log(f"1024-bit limb-mode Mult {Bn / t_mult2_g:.2f} ops/s, DecryptL2 "
+        f"{Bn / t_dec2_g:.2f} ops/s first call (B={Bn}) [{card}]")
+    BGNParams(rns_miller="auto").apply_kernel_modes()
+    del pk2, sk2, tables2, a2, b2, prod2, prod2_g
+    phase_done("4g (limb-domain configuration)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
                       ("step-mode Encrypt", lambda: in_step_mode(
                           lambda: pk.encrypt_with_randomness(ms, rs))),
                       ("step-mode Mult", lambda: in_step_mode(
+                          lambda: pk.mult(a, b))),
+                      ("limb-mode Encrypt", lambda: in_limb_mode(
+                          lambda: pk.encrypt_with_randomness(ms, rs))),
+                      ("limb-mode Mult", lambda: in_limb_mode(
                           lambda: pk.mult(a, b))),
                       ("DecryptL2", lambda: sk.decrypt(prod[:Bd], pk, tables)),
                       ("Add", lambda: pk.add(a, b)),
@@ -1028,24 +1272,33 @@ def main() -> None:
     for name in REPLACES:
         recs = results[name]
         main = recs[0]
+        if name in STEP_PATH:          # the per-step configuration
+            launches = launches_step[name]
+        elif name in digit_names:      # the limb-domain configuration
+            launches = launches_digit[name]
+        else:
+            launches = (launches_main[name] + launches_l1[name]
+                        + launches_limb[name])
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bgn_torch/csrc/{name}.cu",
             "replaces": REPLACES[name],
-            "launches": (launches_step[name] if name in STEP_PATH
-                         else launches_main[name] + launches_l1[name]
-                         + launches_limb[name]),
+            "launches": launches,
             "launches_by_path": {"main": launches_main[name],
                                  "l1": launches_l1[name],
                                  "limb": launches_limb[name],
                                  "1024": launches_1024[name],
                                  "2048": launches_2048[name],
-                                 "step": launches_step[name]},
+                                 "step": launches_step[name],
+                                 "limb_domain": launches_digit[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "match": True, "shape": main["shape"],
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
+        if name == "mont_mul":
+            kernels.append(dict(kernels[-1], name=MONT_U32[0],
+                                replaces=MONT_U32[1]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,10 +26,11 @@ def port_public_key(pk, device="cpu"):
                       c.p_host, device)
     rns = cj.rns_ctx(rns_arrays(d.rns), d.rns.k, d.rns.h, d.rns.L, device)
     dev = cj.device_key(
-        ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_naf),
-        np.asarray(d.l_bits), np.asarray(d.pair_qq),
+        ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_bits),
+        np.asarray(d.n_naf), np.asarray(d.l_bits), np.asarray(d.pair_qq),
         tuple(np.asarray(a) for a in d.p_win_rns[:2]),
-        tuple(np.asarray(a) for a in d.q_win_rns[:2]), _pt(d.q_win), device)
+        tuple(np.asarray(a) for a in d.q_win_rns[:2]), _pt(d.p_win),
+        _pt(d.q_win), device)
     return cj.public_key(pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space,
                          pk.deterministic, pk.P_host, pk.Q_host, dev)
 

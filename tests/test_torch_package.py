@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from bgn_torch import scheme
+from bgn_torch.fieldcore import montgomery as tmg
 from bgn_torch.fieldcore import rns as trn
+from bgn_torch.ops import cuda_pairing
 from bgn_torch.ops import cuda_rns
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -112,6 +114,39 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
         assert wrapper.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_rns.pow_loop(ctx, x.to("meta"), bits)
+
+
+def test_digit_wrappers_count_and_dispatch_cpu_to_plain():
+    """The two digit-domain Miller step wrappers run their plain versions
+    for CPU tensors without counting a launch, and refuse other devices."""
+    ctx = tmg.make_mont_ctx((1 << 89) - 1, device="cpu")
+    g = np.random.default_rng(4)
+
+    def digits():
+        v = [int(a) * int(b) % ctx.p_host
+             for a, b in g.integers(1, 1 << 62, size=(5, 2))]
+        limbs = torch.tensor([[(x >> (16 * j)) & 0xFFFF for x in v]
+                              for j in range(ctx.L)])
+        return cuda_pairing.to_digits(limbs)
+
+    V, f, A, Bq = (digits(), digits(), digits()), (digits(), digits()), \
+        (digits(), digits()), (digits(), digits())
+    assert cuda_pairing.WRAPPERS == (cuda_pairing.dbl_step,
+                                     cuda_pairing.add_step)
+    for wrapper, plain, args in (
+            (cuda_pairing.dbl_step, cuda_pairing.dbl_step_plain, (V, f, Bq)),
+            (cuda_pairing.add_step, cuda_pairing.add_step_plain,
+             (V, f, A, Bq))):
+        before = wrapper.launches
+        got, want = wrapper(ctx, *args), plain(ctx, *args)
+        assert all(torch.equal(u, w) for u, w in zip(got[0] + got[1],
+                                                     want[0] + want[1]))
+        assert all(t.dtype == torch.float32 and t.shape == V[0].shape
+                   for t in got[0] + got[1])
+        assert wrapper.launches == before
+        meta = tuple(tuple(t.to("meta") for t in a) for a in args)
+        with pytest.raises(ValueError, match="unsupported device"):
+            wrapper(ctx, *meta)
 
 
 def _emulated_kernel_r_mul(ctx, x, y):

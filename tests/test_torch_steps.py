@@ -15,7 +15,7 @@ loop configuration, on the shared 64-bit key, exactly.
    level-1 path equal the loop path's limbs and the host oracle, and every
    value decrypts.
 4. BGNParams: the JAX package's fields, defaults, validation and
-   to_dict(); the refused kernel modes.
+   to_dict(); the refused kernel modes; the applied ones.
 """
 import dataclasses
 import random
@@ -30,6 +30,7 @@ from _torch_carry import port_public_key, port_tables
 from bgn_torch import config as tconfig
 from bgn_torch import scheme as tscheme
 from bgn_torch.ops import cuda_rns
+from bgn_torch.ops import pairing as tpairing
 from bgn_torch.ops import rns_pairing as trp
 from bgn_torch.utils import convert as tconvert
 from bgn_tpu import config as jconfig
@@ -306,18 +307,27 @@ def test_bgn_params_match_jax(monkeypatch):
         assert str(te.value) == str(je.value)
 
     monkeypatch.setattr(trp, "_PALLAS_MODE", trp._PALLAS_MODE)
+    for name in ("_RNS_MODE", "_USE_FUSED"):
+        monkeypatch.setattr(tpairing, name, getattr(tpairing, name))
     refused = [({"rns_pallas": "0"}, ValueError, "plain PyTorch"),
                ({"rns_pallas": "interpret"}, ValueError, "device=\"cpu\""),
                ({"rns_pallas": "loop-interpret"}, ValueError, "interpreter"),
                ({"rns_pallas": "2"}, ValueError, "unknown"),
-               ({"rns_miller": "0"}, NotImplementedError, "digit-domain"),
                ({"rns_miller": "x"}, ValueError, "unknown"),
-               ({"fused_miller": True}, NotImplementedError, "digit-domain"),
                ({"pallas": False}, NotImplementedError, "queue 3")]
     for fields, exc, why in refused:
         with pytest.raises(exc, match=why):
             tconfig.BGNParams(**fields).apply_kernel_modes()
         assert trp._PALLAS_MODE == "loop"
+        assert tpairing._RNS_MODE == "auto" and tpairing._USE_FUSED is True
+    # the limb-domain configuration and the Miller form are applied
+    tconfig.BGNParams(rns_miller="0").apply_kernel_modes()
+    assert tpairing._RNS_MODE == "0" and not tpairing.use_rns(object())
+    tconfig.BGNParams(fused_miller=False).apply_kernel_modes()
+    assert tpairing._USE_FUSED is False and tpairing._RNS_MODE == "0"
+    tconfig.BGNParams(rns_miller="auto", fused_miller=True) \
+        .apply_kernel_modes()
+    assert tpairing.use_rns(object()) and tpairing._USE_FUSED is True
     with pytest.raises(NotImplementedError, match="parallel"):
         tconfig.BGNParams().make_mesh()
     tconfig.BGNParams(rns_miller="1", pallas=True).apply_kernel_modes()
