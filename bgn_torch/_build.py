@@ -30,10 +30,11 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types, the stream last; the RNS kernels take
-# (blob, k, slots, ...) first
+# (blob, k, slots, ...) first, miller_loop (blob, planes, k, slots, ...)
 _SIGNATURES = {
     "bgn_mont_mul": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _P, _I, _P],
-    "bgn_miller_loop": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bgn_miller_loop": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                        _P],
     "bgn_pow_loop": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_loop": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "bgn_dual_ladder": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
@@ -53,6 +54,8 @@ _SIGNATURES = {
     # threads per block)
     "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _I, _I, _P],
     "bgn_miller_add_digits": [_P] * 15 + [_I, _I, _I, _I, _P],
+    # no launch: the Miller kernel's shared memory per block at (k, slots)
+    "bgn_miller_loop_smem": [_I, _I],
 }
 
 # what the last build did: seconds, and nvcc's -Xptxas -v report

@@ -52,14 +52,19 @@ def affine_point(x, y, inf, device="cuda") -> AffinePoint:
                          for a in (x, y, inf)))
 
 
-def device_key(ctx: MontCtx, rns: RNSCtx, P, Q, n_bits, n_naf, l_bits,
-               pair_qq, p_win_rns, q_win_rns, p_win, q_win,
+def device_key(ctx: MontCtx, rns: RNSCtx | None, P, Q, n_bits, n_naf,
+               l_bits, pair_qq, p_win_rns, q_win_rns, p_win, q_win,
                device="cuda") -> PublicDeviceKey:
     """PublicDeviceKey from the JAX key: P, Q and the limb window tables
     p_win, q_win ([L, J, R]) as (x, y, inf) arrays; n_bits, n_naf and
     l_bits as digit vectors; pair_qq as [2, L] limbs; p_win_rns,
-    q_win_rns as (rx, ry) residues [2k, J, R]."""
+    q_win_rns as (rx, ry) residues [2k, J, R].  A JAX key whose rns is
+    None (a modulus beyond the RNS prime pool) has no residue tables:
+    pass rns, p_win_rns and q_win_rns as None, and every op of the port's
+    key takes its limb branch."""
     def win(t):
+        if t is None:
+            return None
         return tuple(np.ascontiguousarray(
             np.moveaxis(np.asarray(a, dtype=np.float32), 0, -1)) for a in t[:2])
 

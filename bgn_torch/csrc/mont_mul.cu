@@ -15,8 +15,11 @@
 //
 // One thread per lane runs the CIOS loop of mont.cuh (bgn_cios: the
 // lazily carried uint32 accumulator T[0..2L] and its audit) and one
-// conditional subtraction of p.  T and this lane's b live in local memory
-// (L <= BGN_MONT_LMAX), p in shared memory.
+// conditional subtraction of p.  T and this lane's b live in local memory,
+// sized by the limb cap LC, a template parameter: LC = 160 for L <= 160
+// (the 512- to 2048-bit keys, L = 34, 66, 130) and LC = 264 up to the L of
+// a 4096-bit key (258), so the narrower keys keep their frame; p lives in
+// shared memory.
 //
 // Bound on the H100: at L = 34 and n = 8192 the bytes (3 * 8 * L per
 // lane) take ~2 us and the L^2 32-bit multiply-adds per lane ~0.6 us (the
@@ -29,7 +32,8 @@
 
 #include "mont.cuh"
 
-#define BGN_MONT_LMAX 160              // limbs: 2048-bit keys have L = 130
+#define BGN_MONT_LCAP 160              // limbs: 2048-bit keys have L = 130
+#define BGN_MONT_LMAX 264              // 4096-bit keys have L = 258
 #define BGN_MONT_THREADS 128
 
 // limb i of a lane's first operand, read through its element strides
@@ -41,21 +45,22 @@ struct BgnStridedLimbs {
   }
 };
 
+template <int LC>
 __global__ void __launch_bounds__(BGN_MONT_THREADS)
 bgn_mont_mul_kernel(const int64_t* __restrict__ a, long long a_sl,
                     long long a_sn, const int64_t* __restrict__ b,
                     long long b_sl, long long b_sn,
                     const int64_t* __restrict__ p, unsigned pinv, int L,
                     int64_t* __restrict__ out, int n) {
-  __shared__ unsigned ps[BGN_MONT_LMAX];
+  __shared__ unsigned ps[LC];
   for (int j = threadIdx.x; j < L; j += blockDim.x) ps[j] = (unsigned)p[j];
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
   const int64_t* al = a + lane * a_sn;
   const int64_t* bl = b + lane * b_sn;
-  unsigned bv[BGN_MONT_LMAX];
-  unsigned T[2 * BGN_MONT_LMAX + 1];
+  unsigned bv[LC];
+  unsigned T[2 * LC + 1];
   for (int j = 0; j < L; j++) bv[j] = (unsigned)bl[j * b_sl];
   bgn_cios(BgnStridedLimbs{al, a_sl}, bv, ps, pinv, L, T);
   bgn_cond_sub_p(T + L, ps, L, bv);
@@ -69,7 +74,11 @@ extern "C" int bgn_mont_mul(const int64_t* a, long long a_sl, long long a_sn,
                             int n, cudaStream_t stream) {
   if (L < 1 || L > BGN_MONT_LMAX || n < 1) return (int)cudaErrorInvalidValue;
   const int grid = (n + BGN_MONT_THREADS - 1) / BGN_MONT_THREADS;
-  bgn_mont_mul_kernel<<<grid, BGN_MONT_THREADS, 0, stream>>>(
-      a, a_sl, a_sn, b, b_sl, b_sn, p, (unsigned)pinv, L, out, n);
+  if (L <= BGN_MONT_LCAP)
+    bgn_mont_mul_kernel<BGN_MONT_LCAP><<<grid, BGN_MONT_THREADS, 0, stream>>>(
+        a, a_sl, a_sn, b, b_sl, b_sn, p, (unsigned)pinv, L, out, n);
+  else
+    bgn_mont_mul_kernel<BGN_MONT_LMAX><<<grid, BGN_MONT_THREADS, 0, stream>>>(
+        a, a_sl, a_sn, b, b_sl, b_sn, p, (unsigned)pinv, L, out, n);
   return (int)cudaGetLastError();
 }

@@ -56,15 +56,13 @@
 //    reduction gives the plain version's value.
 // The result of each step is the canonical residue of the same integer
 // that the plain PyTorch version (fieldcore/rns.py) reduces, so the two
-// agree bit for bit.  Above k = 192 there is no instantiation.
+// agree bit for bit.  Above k = 192 there is no instantiation (a key with
+// more channels takes the limb path: scheme._make_rns).
 //
-// What bounds it on the H100: instruction issue.  One r_mul is ~2k
-// shuffles and ~2k (shared load + integer multiply-add) pairs per thread
-// of the warp, where a tensor-core product would issue a few dozen
-// instructions; the out-of-line r_mul adds a call per product.  It does
-// not use the tensor cores (a later step).  At S = 12 the matrix reads
-// come from L1/L2 instead of shared memory, and the larger Fe<12> state
-// raises register pressure (ptxas may spill; chip_smoke.py prints it).
+// The product r_mul_v below is the one every RNS kernel runs except
+// miller_loop.cu, which runs the block-wide tensor-core product of
+// rns_tc.cuh through the step functions' product policy (dbl_step,
+// add_step).  What bounds each on the H100 is written there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -431,6 +429,18 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
   out = r_mul_v<S>(c.k, x, y);
 }
 
+// The product policy of the Miller steps: Mul::mul(c, out, x, y).  The
+// default is r_mul_v, one warp per lane; miller_loop.cu passes the
+// block-wide product of rns_tc.cuh.
+template <int S>
+struct MulWarp {
+  static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
+                                             const Fe<S>& x,
+                                             const Fe<S>& y) {
+    r_mul(c, out, x, y);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // Curve and Miller steps.  The integer after each r_sub is the static
 // bound K of its subtrahend, as rns_pairing.py's RVal bookkeeping sets it
@@ -438,30 +448,30 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
 // ---------------------------------------------------------------------------
 
 // Jacobian doubling + tangent line at phi(B) + f <- f^2 * line (21 r_muls).
-template <int S>
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
                                                 Fe<S>& X, Fe<S>& Y, Fe<S>& Z,
                                                 Fe<S>& fr, Fe<S>& fi,
                                                 const Fe<S>& xb,
                                                 const Fe<S>& yb) {
   Fe<S> XX, ZZ, YY, YZ, t2, ab, sqre, ta, tb;
-  r_mul(c, XX, X, X);
-  r_mul(c, ZZ, Z, Z);
-  r_mul(c, YY, Y, Y);
-  r_mul(c, YZ, Y, Z);
-  r_mul(c, t2, X, Z);
-  r_mul(c, ab, fr, fi);
+  Mul::mul(c, XX, X, X);
+  Mul::mul(c, ZZ, Z, Z);
+  Mul::mul(c, YY, Y, Y);
+  Mul::mul(c, YZ, Y, Z);
+  Mul::mul(c, t2, X, Z);
+  Mul::mul(c, ab, fr, fi);
   r_add(c, ta, fr, fi);
   r_sub(c, tb, fr, fi, 9);
-  r_mul(c, sqre, ta, tb);
+  Mul::mul(c, sqre, ta, tb);
   Fe<S> Z3, sqim;
   r_add(c, Z3, YZ, YZ);
   r_add(c, sqim, ab, ab);
   Fe<S> ZZZ, ZZZZ, YYYY, T;
-  r_mul(c, ZZZ, Z, ZZ);
-  r_mul(c, ZZZZ, ZZ, ZZ);
-  r_mul(c, YYYY, YY, YY);
-  r_mul(c, T, X, YY);
+  Mul::mul(c, ZZZ, Z, ZZ);
+  Mul::mul(c, ZZZZ, ZZ, ZZ);
+  Mul::mul(c, YYYY, YY, YY);
+  Mul::mul(c, T, X, YY);
   Fe<S> M, Sv;
   r_add(c, ta, XX, XX);
   r_add(c, ta, XX, ta);
@@ -469,10 +479,10 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
   r_add(c, Sv, T, T);
   r_add(c, Sv, Sv, Sv);              // 12
   // layer 3 (MM reuses XX, t1 reuses ZZ, Z3ZZZ reuses YY, Z3Y reuses ab)
-  r_mul(c, XX, M, M);
-  r_mul(c, ZZ, ZZZ, xb);
-  r_mul(c, YY, Z3, ZZZ);
-  r_mul(c, ab, Z3, Y);
+  Mul::mul(c, XX, M, M);
+  Mul::mul(c, ZZ, ZZZ, xb);
+  Mul::mul(c, YY, Z3, ZZZ);
+  Mul::mul(c, ab, Z3, Y);
   Fe<S> X3;
   r_sub(c, X3, XX, Sv, 12);
   r_sub(c, X3, X3, Sv, 12);          // 27
@@ -482,18 +492,18 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
   r_add(c, Y8, Y8, Y8);              // 24
   // layer 4
   r_sub(c, ta, Sv, X3, 27);
-  r_mul(c, ZZZZ, M, ta);             // MSX3
+  Mul::mul(c, ZZZZ, M, ta);             // MSX3
   r_add(c, tb, ZZ, t2);
-  r_mul(c, T, M, tb);                // Mt
-  r_mul(c, YZ, YY, yb);              // l_im
+  Mul::mul(c, T, M, tb);                // Mt
+  Mul::mul(c, YZ, YY, yb);              // l_im
   r_sub(c, Y, ZZZZ, Y8, 24);         // Y3 (old Y no longer needed)
   r_sub(c, M, T, ab, 3);             // l_re
   // layer 5
-  r_mul(c, XX, sqre, M);             // m0
-  r_mul(c, ZZ, sqim, YZ);            // m1
+  Mul::mul(c, XX, sqre, M);             // m0
+  Mul::mul(c, ZZ, sqim, YZ);            // m1
   r_add(c, ta, sqre, sqim);
   r_add(c, tb, M, YZ);
-  r_mul(c, YY, ta, tb);              // m2
+  Mul::mul(c, YY, ta, tb);              // m2
   r_sub(c, fr, XX, ZZ, 3);
   r_sub(c, ta, YY, XX, 3);
   r_sub(c, fi, ta, ZZ, 3);
@@ -503,7 +513,7 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
 
 // Mixed addition V + A + line through V, A at phi(B) + f <- f * line
 // (17 r_muls).
-template <int S>
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void add_step(const RnsConsts& c,
                                                 Fe<S>& X1, Fe<S>& Y1,
                                                 Fe<S>& Z1, Fe<S>& fr,
@@ -512,37 +522,37 @@ static __device__ __forceinline__ void add_step(const RnsConsts& c,
                                                 const Fe<S>& xb,
                                                 const Fe<S>& yb) {
   Fe<S> ZZ, U2, ZZZ, H, R, ta;
-  r_mul(c, ZZ, Z1, Z1);
-  r_mul(c, U2, ax, ZZ);
-  r_mul(c, ZZZ, Z1, ZZ);
-  r_mul(c, ta, ay, ZZZ);             // S2
+  Mul::mul(c, ZZ, Z1, Z1);
+  Mul::mul(c, U2, ax, ZZ);
+  Mul::mul(c, ZZZ, Z1, ZZ);
+  Mul::mul(c, ta, ay, ZZZ);             // S2
   r_sub(c, H, U2, X1, 27);           // 30
   r_sub(c, R, ta, Y1, 27);           // 30
   Fe<S> HH, RR, Z3, Rx;
-  r_mul(c, HH, H, H);
-  r_mul(c, RR, R, R);
-  r_mul(c, Z3, Z1, H);
+  Mul::mul(c, HH, H, H);
+  Mul::mul(c, RR, R, R);
+  Mul::mul(c, Z3, Z1, H);
   r_add(c, ta, xb, ax);
-  r_mul(c, Rx, R, ta);
+  Mul::mul(c, Rx, R, ta);
   Fe<S> HHH, V, Z3ya, lim;
-  r_mul(c, HHH, H, HH);
-  r_mul(c, V, X1, HH);
-  r_mul(c, Z3ya, Z3, ay);
-  r_mul(c, lim, Z3, yb);
+  Mul::mul(c, HHH, H, HH);
+  Mul::mul(c, V, X1, HH);
+  Mul::mul(c, Z3ya, Z3, ay);
+  Mul::mul(c, lim, Z3, yb);
   Fe<S> X3;
   r_sub(c, X3, RR, HHH, 3);
   r_sub(c, X3, X3, V, 3);
   r_sub(c, X3, X3, V, 3);            // 12
   r_sub(c, U2, Rx, Z3ya, 3);         // l_re
   r_sub(c, ta, V, X3, 12);
-  r_mul(c, ZZ, R, ta);               // RVX3
-  r_mul(c, ZZZ, Y1, HHH);            // Y1HHH
+  Mul::mul(c, ZZ, R, ta);               // RVX3
+  Mul::mul(c, ZZZ, Y1, HHH);            // Y1HHH
   r_sub(c, Y1, ZZ, ZZZ, 3);          // Y3
-  r_mul(c, HH, fr, U2);              // m0
-  r_mul(c, RR, fi, lim);             // m1
+  Mul::mul(c, HH, fr, U2);              // m0
+  Mul::mul(c, RR, fi, lim);             // m1
   r_add(c, ta, fr, fi);
   r_add(c, H, U2, lim);
-  r_mul(c, R, ta, H);                // m2
+  Mul::mul(c, R, ta, H);                // m2
   r_sub(c, fr, HH, RR, 3);
   r_sub(c, ta, R, HH, 3);
   r_sub(c, fi, ta, RR, 3);

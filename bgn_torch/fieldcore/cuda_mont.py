@@ -24,7 +24,7 @@ import torch
 from .._build import is_cpu, launch, ptr
 from . import limbs as lb
 
-LMAX = 160                 # csrc/mont_mul.cu BGN_MONT_LMAX
+LMAX = 264                 # csrc/mont_mul.cu BGN_MONT_LMAX (4096-bit keys)
 
 
 def mont_mul_plain(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

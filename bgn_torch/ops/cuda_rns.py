@@ -43,13 +43,16 @@ Every kernel is built for three slot counts S (channels per thread): S = 4
 for k <= 64 channels per base, S = 6 for k <= 96, which covers 1024-bit
 keys (k = 90), and S = 12 for k <= 192, which covers 2048-bit keys
 (k = 184 to 186); `slots_for` picks S from k, and a wrapper raises
-ValueError for a CUDA tensor with k > 192.  They run one warp per lane
+ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
+key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
-memory and stores it back), the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96), and compute the
-base extensions as exact 32-bit integer dot products; csrc/rns.cuh says
-what bounds them and why.  They agree with the plain versions bit for
-bit.
+memory and stores it back) and the RNS constants in shared memory (the
+two extension matrices in device memory above k = 96).  Twelve of them
+compute the base extensions as exact 32-bit integer dot products per
+warp; miller_loop runs blocks of G lanes whose warps compute them
+together on the tensor cores, from the u8 planes of the extension
+matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what
+bounds them and why.  They agree with the plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -126,6 +129,15 @@ def blob_layout(k: int) -> dict:
     return off
 
 
+def _ext_mats(rns: RNSCtx):
+    """The unsplit extension matrices as int64 numpy arrays, read back
+    from the 6-bit split w1, w2: mat1 [dst j, src i] = (A/a_i)*p*A^-1 mod
+    b_j and mat2 [dst i, src j] = B/b_j mod a_i."""
+    k = rns.k
+    return tuple(w[0:k, :k] * 64 + w[k:2 * k, :k] for w in (
+        t.detach().cpu().numpy().astype(np.int64) for t in (rns.w1, rns.w2)))
+
+
 def const_blob(rns: RNSCtx) -> torch.Tensor:
     """The kernels' constants as one int32 tensor on rns's device (float
     fields bit-cast), cached on the context per device (`kernel_blobs`).
@@ -148,8 +160,7 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
         return t.detach().cpu().numpy()
 
     w1, w2 = host(rns.w1).astype(np.int64), host(rns.w2).astype(np.int64)
-    mat1 = w1[0:k, :k] * 64 + w1[k:2 * k, :k]          # [dst j, src i]
-    mat2 = w2[0:k, :k] * 64 + w2[k:2 * k, :k]          # [dst i, src j]
+    mat1, mat2 = _ext_mats(rns)
     for name, vals in (("m", rns.m), ("recip", rns.recip),
                        ("one", rns.one_rns), ("kp", rns.kp),
                        ("qc_a", rns.qc_a), ("p_mod_b", rns.p_mod_b),
@@ -169,6 +180,48 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
         blob[off[name]:off[name] + k * rs] = t.reshape(-1)
     out = torch.from_numpy(blob).to(dev)
     rns.kernel_blobs[dev] = out
+    return out
+
+
+def tc_index(k: int):
+    """The documented index map of `tc_planes`: for byte b of the planes,
+    (mat, plane, row, col) with mat 0 = mat1 (ext A -> B), 1 = mat2, plane
+    0 = lo (bits 0-7), 1 = hi (bits 8-11), row = destination channel and
+    col = source channel (>= k: padding, zero).  Byte
+    ((((mat * mt + t) * kt + s) * 2 + plane) * 32 + lane) * 16 + i holds
+    entry (16 t + row_i, 32 s + col_i) of the padded [16 mt, 32 kt]
+    matrix, where for thread `lane` of the warp (g = lane // 4,
+    q = lane % 4) and byte i of its 16-byte m16n8k32 A fragment:
+    row_i = g + 8 ((i // 4) % 2), col_i = 4 q + i % 4 + 16 (i // 8)."""
+    mt, kt = -(-k // 16), -(-k // 32)
+    mat, t, s, plane, lane, i = np.meshgrid(
+        np.arange(2), np.arange(mt), np.arange(kt), np.arange(2),
+        np.arange(32), np.arange(16), indexing="ij")
+    g, q = lane // 4, lane % 4
+    row = 16 * t + g + 8 * ((i // 4) % 2)
+    col = 32 * s + 4 * q + i % 4 + 16 * (i // 8)
+    return tuple(a.reshape(-1) for a in (mat, plane, row, col))
+
+
+def tc_planes(rns: RNSCtx) -> torch.Tensor:
+    """The two extension matrices mat1 [dst j, src i] and mat2 [dst i,
+    src j] (the unsplit matrices of `const_blob`) as u8 planes in the
+    m16n8k32 A-fragment order of csrc/rns_tc.cuh (index map: `tc_index`),
+    one uint8 tensor on rns's device, cached on the context beside the
+    blob.  The kernel copies it to shared memory with 16-byte loads."""
+    dev = rns.m.device
+    key = ("tc", dev)
+    if key in rns.kernel_blobs:
+        return rns.kernel_blobs[key]
+    k = rns.k
+    mt, kt = -(-k // 16), -(-k // 32)
+    mats = np.zeros((2, 16 * mt, 32 * kt), dtype=np.int64)
+    mats[:, :k, :k] = _ext_mats(rns)
+    mat, plane, row, col = tc_index(k)
+    v = mats[mat, row, col]
+    out = torch.from_numpy(
+        np.where(plane == 0, v & 255, v >> 8).astype(np.uint8)).to(dev)
+    rns.kernel_blobs[key] = out
     return out
 
 
@@ -243,16 +296,18 @@ def miller_loop_plain(rns: RNSCtx, ax, ay, xb, yb, digits):
 
 
 def miller_loop(rns: RNSCtx, ax, ay, xb, yb, digits):
-    """Wrapper: the whole Miller loop as one kernel on the card.
-    ax, ay, xb, yb: [2k, N] residues (bound 3); digits: [nd] shared."""
+    """Wrapper: the whole Miller loop as one kernel on the card, blocks of
+    lanes (csrc/rns_tc.cuh TcLanes) whose base extensions run on the
+    tensor cores (the planes of `tc_planes`).  ax, ay, xb, yb: [2k, N] residues (bound 3);
+    digits: [nd] shared."""
     if _is_cpu(ax):
         return miller_loop_plain(rns, ax, ay, xb, yb, digits)
     n = _check_state(rns, ax, ay, xb, yb)
     dg = _digits_dev(digits, ax.device)
     fr, fi = torch.empty_like(ax), torch.empty_like(ax)
     if n:
-        _launch("bgn_miller_loop", _ptr(const_blob(rns)), rns.k,
-                slots_for(rns.k),
+        _launch("bgn_miller_loop", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, slots_for(rns.k),
                 _ptr(ax), _ptr(ay), _ptr(xb), _ptr(yb), _ptr(dg),
                 dg.numel(), _ptr(fr), _ptr(fi), n)
         miller_loop.launches += 1

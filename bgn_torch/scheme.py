@@ -75,9 +75,10 @@ class PublicDeviceKey(nn.Module):
     the dual_ladder kernel reads a row as one contiguous run, and the same
     tables as limbs, p_tab and q_tab = AffinePoint [L, J, R] (the limb
     fixed-base ladders: the L1 re-randomization, and Encrypt under
-    rns_miller="0")."""
+    rns_miller="0").  A key without an RNS context (rns None, see
+    _make_rns) has no residue tables: p_win and q_win are None."""
 
-    def __init__(self, ctx: MontCtx, rns: RNSCtx, P: AffinePoint,
+    def __init__(self, ctx: MontCtx, rns: RNSCtx | None, P: AffinePoint,
                  Q: AffinePoint, n_bits, n_naf, l_bits, pair_qq, p_win,
                  q_win, p_tab: AffinePoint, q_tab: AffinePoint):
         super().__init__()
@@ -94,9 +95,11 @@ class PublicDeviceKey(nn.Module):
                              torch.as_tensor(l_bits, dtype=torch.int64))
         self.register_buffer("pair_qq",
                              torch.as_tensor(pair_qq, dtype=torch.int64))
-        for name, (x, y) in (("p_win", p_win), ("q_win", q_win)):
-            self.register_buffer(f"{name}_x", torch.as_tensor(x).contiguous())
-            self.register_buffer(f"{name}_y", torch.as_tensor(y).contiguous())
+        for name, win in (("p_win", p_win), ("q_win", q_win)):
+            for f, t in zip("xy", win or (None, None)):
+                self.register_buffer(
+                    f"{name}_{f}",
+                    None if t is None else torch.as_tensor(t).contiguous())
 
     @property
     def P(self) -> AffinePoint:
@@ -116,11 +119,11 @@ class PublicDeviceKey(nn.Module):
 
     @property
     def p_win(self):
-        return self.p_win_x, self.p_win_y
+        return None if self.p_win_x is None else (self.p_win_x, self.p_win_y)
 
     @property
     def q_win(self):
-        return self.q_win_x, self.q_win_y
+        return None if self.q_win_x is None else (self.q_win_x, self.q_win_y)
 
 
 class BGNPublicKey:
@@ -417,8 +420,8 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
         l_bits=lb.int_to_bits(params.l, 32),
         pair_qq=convert.fp2_single_from_host(
             ctx, hm.tate_pairing(gk.Q, gk.Q, params)),
-        p_win=_win_rns(params.p, L, p_rows),
-        q_win=_win_rns(params.p, L, q_rows),
+        p_win=None if rns is None else _win_rns(params.p, L, p_rows),
+        q_win=None if rns is None else _win_rns(params.p, L, q_rows),
         p_tab=limb_table(p_rows),
         q_tab=limb_table(q_rows),
     ).to(device)
@@ -429,10 +432,21 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
     return pk, sk
 
 
-def _make_rns(p: int, L: int, device) -> RNSCtx:
-    """RNS context for the key (every key has one; rns_miller="0" leaves
-    it unused)."""
-    return rn.make_rns_ctx(p, L=L, device=device)
+def _make_rns(p: int, L: int, device) -> RNSCtx | None:
+    """RNS context for the key, or None where the RNS path cannot serve
+    it: p beyond the 12-bit prime pool (make_rns_ctx raises, and the JAX
+    package's _make_rns returns None) or more than
+    cuda_rns.K_KERNEL_MAX channels per base (no RNS kernel is
+    instantiated there).  The rule is the same on every device.  Without
+    a context pairing.use_rns is false, so every op takes its limb branch
+    (the one rns_miller="0" runs); values are canonical, so the results
+    are those of the RNS path."""
+    try:
+        if rn.select_channels(p)[2] > cuda_rns.K_KERNEL_MAX:
+            return None
+        return rn.make_rns_ctx(p, L=L, device=device)
+    except ValueError:
+        return None
 
 
 def _window_table(base, p: int, key_bits: int) -> list:

@@ -10,15 +10,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the build of every kernel in bgn_torch/csrc with nvcc's -Xptxas -v
      report (registers, shared memory, spills) for every instantiation of
      the RNS kernels, S = 4 slots (k <= 64), S = 6 (k <= 96) and S = 12
-     (k <= 192, the extension matrices in device memory), mont_mul and
-     the two digit-domain Miller step kernels (limb caps 40 and 64);
+     (k <= 192, the extension matrices in device memory), mont_mul (limb
+     caps 160 and 264) and the two digit-domain Miller step kernels (limb
+     caps 40 and 64); the count of tensor-core IMMA instructions in the
+     SASS of the Miller loop kernel (blocks of G lanes, base extensions on
+     the tensor cores: csrc/rns_tc.cuh) for each S, which must be > 0;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
-     N = batch, pow_step also at N = 1), and mont_mul at L = 34
-     (N = 8192, also with a broadcast R^2 operand), L = 66 and L = 130
-     (N = 512), against its plain PyTorch version on the same inputs
+     N = batch, pow_step also at N = 1; miller_loop also at N = batch - 3
+     and N = 1, a ragged last block), and mont_mul at L = 34
+     (N = 8192, also with a broadcast R^2 operand), L = 66, L = 130 and
+     L = 258 (a 4096-bit modulus, the widest cap; N = 512), against its
+     plain PyTorch version on the same inputs
      (torch.equal: the kernels are exact integer arithmetic), with the
      kernel's and the plain version's times (CUDA events); then a chain
      of step-kernel launches (the per-step configuration's host loop)
@@ -75,6 +80,12 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the digit-step launches of one Mult checked against the bits of n;
      no RNS kernel launched in the phase; ops/s of a first and second
      call;
+  4h. phase 2's key rebuilt with its RNS context withheld (as for a key
+     beyond the RNS prime pool or above k = 192: scheme._make_rns gives
+     None), in the default configuration: Encrypt -> Mult -> DecryptL2 at
+     limb-batch lanes, Encrypt and Mult torch.equal to phase 4g's
+     limb-mode outputs on the same inputs, every lane decrypted, no RNS
+     kernel launched;
   5. one call of each op under torch.profiler (the re-randomized Mult and
      L2 Add, the step-mode Mult and Encrypt, and the limb-mode Mult and
      Encrypt included): device busy time, idle share, the costliest
@@ -101,7 +112,7 @@ from pathlib import Path
 # Published peaks of one H100 SXM (NVIDIA data sheet; dense, at 700 W).
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
-PEAK_BF16_S = 989e12
+PEAK_INT8_S = 1979e12      # tensor cores, 8-bit integer operands
 # 32-bit integer multiply-adds per second: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz (the Hopper white paper's 33.5 INT32 TOPS counts a
 # multiply-add as two operations).
@@ -118,14 +129,20 @@ def mont_mads(L: int) -> int:
 # step-kernel launches
 SLEEP_CYCLES = 100_000_000
 
-# Elementwise fp32 operations per lane, counted from the plain code
-# (bgn_torch/fieldcore/rns.py): a _red is 7 ops (mul, floor, mul, sub,
-# compare, sub, select); an r_mul is 96 ops per base channel (k of them):
-# products + reductions 16k, qhat 8k, two 6-bit splits 8k, two extension
-# combines 44k, the base-B sum 9k + 3k, rhat 8k; an r_add is 4 ops per
-# channel (2k channels), an r_sub 8.  The base extensions are two
-# [3k+1, 2k] x [2k] products per r_mul (2 FLOPs per MAC), which a tensor
-# core would run at the bf16 peak.
+# Elementwise operations per lane of the exact integer form of the RNS
+# product (csrc/rns_tc.cuh r_mul_tc), the least the function needs on
+# this card: a _red is 7 ops (mul, floor, mul, sub, compare, sub, select);
+# an r_mul is 66 ops per base channel (k of them): products + reductions
+# 16k, qhat 8k, the u8 lo/hi splits of the two extensions' sources 4k,
+# the two extension combines (the plane sums, + KC*m - alpha*(p mod b),
+# one mod: 9 per channel each) 18k, the base-B sum 9k + 3k, rhat 8k; an
+# r_add is 4 ops per channel (2k channels), an r_sub 8.  Each counts at
+# the fp32 rate, the integer ones too (the faster rate, so the bound
+# stays a least time).  The base extensions are two [k+1, k] x [k]
+# products per r_mul (the extra row: the alpha sum), each four u8 plane
+# products (2 ops per multiply-add), at the int8 tensor-core peak.  (The
+# TPU's fp32 form needs 96 ops per channel and two [3k+1, 2k] products:
+# fp32 sums are exact only over 6-bit splits and three-piece combines.)
 STEP_COUNTS = {            # (r_mul, r_add, r_sub) per step, from the code
     "r_mul": (1, 0, 0),
     "dbl_step": (21, 14, 9),
@@ -186,15 +203,16 @@ def log(msg: str) -> None:
 
 
 def ops_of(k: int, counts: dict) -> tuple:
-    """(elementwise fp32 ops, extension-matmul FLOPs) of one lane."""
+    """(elementwise ops, extension-matmul ops on u8 operands) of one
+    lane."""
     n_mul = n_add = n_sub = 0
     for step, times in counts.items():
         m, a, s = STEP_COUNTS[step]
         n_mul += m * times
         n_add += a * times
         n_sub += s * times
-    elem = n_mul * 96 * k + (n_add * 4 + n_sub * 8) * 2 * k
-    mm = n_mul * 2 * 2 * (3 * k + 1) * (2 * k)
+    elem = n_mul * 66 * k + (n_add * 4 + n_sub * 8) * 2 * k
+    mm = n_mul * 2 * 4 * 2 * (k + 1) * k
     return elem, mm
 
 
@@ -203,7 +221,7 @@ def bound(elem_total: float, mm_total: float, nbytes: float,
     """(ms, "bytes" or "operations"): the larger of the bytes over the
     memory rate and the operations over their peak rates."""
     t = {"bytes": nbytes / PEAK_BYTES_S,
-         "operations": max(elem_total / PEAK_FP32_S, mm_total / PEAK_BF16_S,
+         "operations": max(elem_total / PEAK_FP32_S, mm_total / PEAK_INT8_S,
                            int_mads / PEAK_INT32_MAD_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
@@ -298,6 +316,27 @@ def ptxas_table(report: str) -> list:
     return sorted(rows, key=lambda r: (r["kernel"], r["S"]))
 
 
+def sass_counts(obj: Path, nvcc: str, opcode: str) -> dict:
+    """{S: number of `opcode` instructions} in the SASS of an object file
+    (cuobjdump -sass, from nvcc's directory), per slot count S: summed
+    over every function whose mangled name holds the template argument S
+    (a kernel instantiation and the out-of-line device functions it
+    calls, which cuobjdump lists as functions of their own)."""
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass",
+                           str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"ILi(\d+)E", line)
+            cur = int(m.group(1)) if m else None
+            if cur is not None:
+                counts.setdefault(cur, 0)
+        elif cur is not None and re.search(rf"\b{opcode}\b", line):
+            counts[cur] += 1
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -374,15 +413,25 @@ def main() -> None:
         "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots, "
         "each digit kernel for limb caps 40 and 64)")
     for r in ptxas_table(_build.BUILD_INFO["ptxas"]):
-        tag = "cap" if "digits" in r["kernel"] else "S"
+        tag = "cap" if r["kernel"] in ("mont_mul", "miller_dbl_digits",
+                                       "miller_add_digits") else "S"
         log(f"  ptxas {r['kernel']:<18s} {tag}={r['S']}: {r['registers']} "
             f"registers, stack {r['stack']} B, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     for k_ in (45, 90, 185):
         lay = cuda_rns.blob_layout(k_)
-        log(f"  k = {k_}: S = {cuda_rns.slots_for(k_)}, {lay['smem'] * 4} B "
+        S_ = cuda_rns.slots_for(k_)
+        log(f"  k = {k_}: S = {S_}, {lay['smem'] * 4} B "
             f"of dynamic shared memory per block, {lay['words'] * 4} B of "
-            "constants")
+            f"constants; miller_loop: "
+            f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
+            "shared memory per block")
+    imma = sass_counts(_build.BUILD_DIR / "miller_loop.o", _build._nvcc(),
+                       "IMMA")
+    log(f"  IMMA (tensor-core) instructions in the SASS of "
+        f"bgn_miller_loop_kernel<S> and its callees: {imma}")
+    if any(imma.get(S_, 0) < 1 for S_ in cuda_rns.SLOTS):
+        raise AssertionError(f"no IMMA in the Miller kernel's SASS: {imma}")
     phase_done("1 (card, build)")
 
     # -- 2. keys --------------------------------------------------------
@@ -546,6 +595,16 @@ def main() -> None:
                     lambda: cuda_rns._miller_chain(
                         rns, ax, ay, xb, yb, n_naf, cuda_rns.dbl_step,
                         cuda_rns.add_step), key_bits)
+        if key_bits == 512:           # a ragged last block of G lanes
+            for n in (B - 3, 1):
+                args_n = tuple(v[:, :n].contiguous()
+                               for v in (ax, ay, xb, yb))
+                got = cuda_rns.miller_loop(rns, *args_n, n_naf)
+                want = cuda_rns.miller_loop_plain(rns, *args_n, n_naf)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"miller_loop N={n} != plain")
+                log(f"kernel miller_loop N={n} ({key_bits}-bit): equal to "
+                    "plain")
 
         # ladder_loop (L1 decrypt: csk = C^q1) at Bd lanes
         cx, cy = ax[:, :Bd].contiguous(), ay[:, :Bd].contiguous()
@@ -659,10 +718,11 @@ def main() -> None:
     def mont_checks(seed):
         """mont_mul against its plain version: L = 34 (the 512-bit key's
         limbs) at B lanes, also with a broadcast R^2 operand (to_mont's
-        stride-0 lanes), and L = 66 and 130 (1024- and 2048-bit keys) at
-        512 lanes over random odd moduli."""
+        stride-0 lanes), and L = 66, 130 and 258 (1024-, 2048- and
+        4096-bit keys; 258 is the widest limb cap) at 512 lanes over
+        random odd moduli."""
         mrng = random.Random(seed)
-        for bits, n in ((512, B), (1024, 512), (2048, 512)):
+        for bits, n in ((512, B), (1024, 512), (2048, 512), (4096, 512)):
             if bits == 512:
                 mctx = ctx
             else:
@@ -1246,6 +1306,49 @@ def main() -> None:
     del pk2, sk2, tables2, a2, b2, prod2, prod2_g
     phase_done("4g (limb-domain configuration)")
 
+    # -- 4h. phase 2's key without its RNS context: every op on limbs ----
+    def no_pool(*_args, **_kwargs):
+        raise ValueError("modulus too large for the 12-bit RNS prime pool")
+
+    make_rns_ctx = rn.make_rns_ctx
+    rn.make_rns_ctx = no_pool
+    try:
+        pkn, skn = scheme.keygen(512, 1021, rng=random.Random(args.seed),
+                                 device="cuda")
+    finally:
+        rn.make_rns_ctx = make_rns_ctx
+    if pkn.dev.rns is not None or pkn.dev.p_win is not None \
+            or pkn.p != pk.p:
+        raise AssertionError("the key rebuilt without RNS is not phase 2's "
+                             "key with rns None")
+    zero_counts()
+    Bn = args.limb_batch
+    a_h, t_enc_h = timed(lambda: pkn.encrypt_with_randomness(ms[:Bn],
+                                                             rs[:Bn]))
+    b_h, _ = timed(lambda: pkn.encrypt_with_randomness(ks[:Bn], krs[:Bn]))
+    if not (ct_equal(a_h, a_g[:Bn]) and ct_equal(b_h, b_g[:Bn])):
+        raise AssertionError("no-RNS key Encrypt != phase 4g's")
+    prod_h, t_mult_h = timed(lambda: pkn.mult(a_h, b_h))
+    if not ct_equal(prod_h, prod_g[:Bn]):
+        raise AssertionError("no-RNS key Mult != phase 4g's")
+    t_dec_h = decrypt_all(skn, pkn, tables, prod_h,
+                          [m * kk for m, kk in zip(ms[:Bn], ks[:Bn])],
+                          "no-RNS key DecryptL2 (m*k)", Bn)
+    launches_norns = read_counts("no-RNS key", DIGIT_PATH)
+    rns_launched = {w.__name__: launches_norns[w.__name__]
+                    for w in cuda_rns.WRAPPERS if launches_norns[w.__name__]}
+    if rns_launched:
+        raise AssertionError(f"RNS kernels launched for a key without an "
+                             f"RNS context: {rns_launched}")
+    log(f"no-RNS key: Encrypt and Mult equal phase 4g's limb-mode outputs "
+        f"on {Bn} lanes; no launch of the 13 RNS kernels")
+    for op, t in (("Encrypt", t_enc_h), ("Mult", t_mult_h),
+                  ("DecryptL2", t_dec_h)):
+        log(f"no-RNS key {op} {Bn / t:.1f} ops/s first call (B={Bn}) "
+            f"[{card}]")
+    del pkn, skn, a_h, b_h, prod_h
+    phase_done("4h (key without an RNS context)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
@@ -1290,12 +1393,15 @@ def main() -> None:
                                  "1024": launches_1024[name],
                                  "2048": launches_2048[name],
                                  "step": launches_step[name],
-                                 "limb_domain": launches_digit[name]},
+                                 "limb_domain": launches_digit[name],
+                                 "no_rns": launches_norns[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "match": True, "shape": main["shape"],
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
+        if name == "miller_loop":
+            kernels[-1]["sass_imma"] = imma
         if name == "mont_mul":
             kernels.append(dict(kernels[-1], name=MONT_U32[0],
                                 replaces=MONT_U32[1]))

@@ -17,20 +17,25 @@ def _pt(p):
     return tuple(np.asarray(a) for a in (p.x, p.y, p.inf))
 
 
-def port_public_key(pk, device="cpu"):
-    """The port's BGNPublicKey built from the JAX key's arrays."""
+def port_public_key(pk, device="cpu", with_rns=True):
+    """The port's BGNPublicKey built from the JAX key's arrays; with_rns
+    False drops the RNS context and its residue tables, as for a key
+    whose modulus exceeds the RNS prime pool."""
     d = pk.dev
     c = d.ctx
     ctx = cj.mont_ctx(*(np.asarray(a) for a in (c.p, c.pinv, c.r2, c.one,
                                                  c.pm2_bits, c.pp1d4_bits)),
                       c.p_host, device)
-    rns = cj.rns_ctx(rns_arrays(d.rns), d.rns.k, d.rns.h, d.rns.L, device)
+    rns = p_win_rns = q_win_rns = None
+    if with_rns:
+        rns = cj.rns_ctx(rns_arrays(d.rns), d.rns.k, d.rns.h, d.rns.L,
+                         device)
+        p_win_rns = tuple(np.asarray(a) for a in d.p_win_rns[:2])
+        q_win_rns = tuple(np.asarray(a) for a in d.q_win_rns[:2])
     dev = cj.device_key(
         ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_bits),
         np.asarray(d.n_naf), np.asarray(d.l_bits), np.asarray(d.pair_qq),
-        tuple(np.asarray(a) for a in d.p_win_rns[:2]),
-        tuple(np.asarray(a) for a in d.q_win_rns[:2]), _pt(d.p_win),
-        _pt(d.q_win), device)
+        p_win_rns, q_win_rns, _pt(d.p_win), _pt(d.q_win), device)
     return cj.public_key(pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space,
                          pk.deterministic, pk.P_host, pk.Q_host, dev)
 
