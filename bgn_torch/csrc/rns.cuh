@@ -60,9 +60,10 @@
 // more channels takes the limb path: scheme._make_rns).
 //
 // The product r_mul_v below is the one every RNS kernel runs except
-// miller_loop.cu, which runs the block-wide tensor-core product of
-// rns_tc.cuh through the step functions' product policy (dbl_step,
-// add_step).  What bounds each on the H100 is written there.
+// miller_loop.cu and ladder_loop.cu, which run the block-wide tensor-core
+// product of rns_tc.cuh through the step functions' product policy
+// (dbl_step, add_step; dbl_pt, add_pt).  What bounds each on the H100 is
+// written there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -429,9 +430,10 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
   out = r_mul_v<S>(c.k, x, y);
 }
 
-// The product policy of the Miller steps: Mul::mul(c, out, x, y).  The
-// default is r_mul_v, one warp per lane; miller_loop.cu passes the
-// block-wide product of rns_tc.cuh.
+// The product policy of the step functions (dbl_step, add_step, dbl_pt,
+// add_pt): Mul::mul(c, out, x, y).  The default is r_mul_v, one warp per
+// lane; miller_loop.cu and ladder_loop.cu pass the block-wide product of
+// rns_tc.cuh.
 template <int S>
 struct MulWarp {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
@@ -562,62 +564,63 @@ static __device__ __forceinline__ void add_step(const RnsConsts& c,
 
 // Jacobian doubling without line math (9 r_muls, 9 r_adds, 4 r_subs), the
 // operation order of rns_pairing.py _dbl_pt; result bounds (27, 27, 6).
-template <int S>
+// Mul: the product policy, as for dbl_step.
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void dbl_pt(const RnsConsts& c, Fe<S>& X,
                                               Fe<S>& Y, Fe<S>& Z) {
   Fe<S> XX, YY, ZZ;
-  r_mul(c, XX, X, X);
-  r_mul(c, YY, Y, Y);
-  r_mul(c, ZZ, Z, Z);
+  Mul::mul(c, XX, X, X);
+  Mul::mul(c, YY, Y, Y);
+  Mul::mul(c, ZZ, Z, Z);
   Fe<S> YYYY, ZZZZ, T, YZ;
-  r_mul(c, YYYY, YY, YY);
-  r_mul(c, ZZZZ, ZZ, ZZ);
-  r_mul(c, T, X, YY);
-  r_mul(c, YZ, Y, Z);
+  Mul::mul(c, YYYY, YY, YY);
+  Mul::mul(c, ZZZZ, ZZ, ZZ);
+  Mul::mul(c, T, X, YY);
+  Mul::mul(c, YZ, Y, Z);
   Fe<S> M, Sv, ta;
   r_add(c, ta, XX, XX);
   r_add(c, ta, XX, ta);
   r_add(c, M, ta, ZZZZ);             // 12
   r_add(c, Sv, T, T);
   r_add(c, Sv, Sv, Sv);              // 12
-  r_mul(c, XX, M, M);                // MM
+  Mul::mul(c, XX, M, M);                // MM
   r_sub(c, X, XX, Sv, 12);
   r_sub(c, X, X, Sv, 12);            // X3, 27
   r_add(c, YY, YYYY, YYYY);
   r_add(c, YY, YY, YY);
   r_add(c, YY, YY, YY);              // Y8, 24
   r_sub(c, ta, Sv, X, 27);
-  r_mul(c, ZZ, M, ta);               // MSX3
+  Mul::mul(c, ZZ, M, ta);               // MSX3
   r_sub(c, Y, ZZ, YY, 24);           // Y3, 27
   r_add(c, Z, YZ, YZ);               // Z3, 6
 }
 
 // Mixed addition V + A without line math or completeness selects
 // (11 r_muls).
-template <int S>
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe<S>& X1,
                                               Fe<S>& Y1, Fe<S>& Z1,
                                               const Fe<S>& ax,
                                               const Fe<S>& ay) {
   Fe<S> ZZ, U2, ZZZ, H, R, ta;
-  r_mul(c, ZZ, Z1, Z1);
-  r_mul(c, U2, ax, ZZ);
-  r_mul(c, ZZZ, Z1, ZZ);
-  r_mul(c, ta, ay, ZZZ);             // S2
+  Mul::mul(c, ZZ, Z1, Z1);
+  Mul::mul(c, U2, ax, ZZ);
+  Mul::mul(c, ZZZ, Z1, ZZ);
+  Mul::mul(c, ta, ay, ZZZ);             // S2
   r_sub(c, H, U2, X1, 27);
   r_sub(c, R, ta, Y1, 27);
   Fe<S> HH, RR;
-  r_mul(c, HH, H, H);
-  r_mul(c, RR, R, R);
-  r_mul(c, Z1, Z1, H);               // Z3 (old Z1 no longer needed)
-  r_mul(c, U2, H, HH);               // HHH
-  r_mul(c, ZZ, X1, HH);              // V
+  Mul::mul(c, HH, H, H);
+  Mul::mul(c, RR, R, R);
+  Mul::mul(c, Z1, Z1, H);               // Z3 (old Z1 no longer needed)
+  Mul::mul(c, U2, H, HH);               // HHH
+  Mul::mul(c, ZZ, X1, HH);              // V
   r_sub(c, X1, RR, U2, 3);
   r_sub(c, X1, X1, ZZ, 3);
   r_sub(c, X1, X1, ZZ, 3);           // X3, 12
   r_sub(c, ta, ZZ, X1, 12);
-  r_mul(c, HH, R, ta);               // RVX3
-  r_mul(c, RR, Y1, U2);              // Y1HHH
+  Mul::mul(c, HH, R, ta);               // RVX3
+  Mul::mul(c, RR, Y1, U2);              // Y1HHH
   r_sub(c, Y1, HH, RR, 3);
 }
 

@@ -1,6 +1,7 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
-// the product miller_loop.cu runs.  The other RNS kernels keep r_mul_v.
+// the product miller_loop.cu and ladder_loop.cu run.  The other RNS
+// kernels keep r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -45,8 +46,9 @@
 // returns what r_mul_v returns, bit for bit.
 //
 // Lanes >= n of the last block run on zeros and store nothing, so every
-// warp of the block reaches every barrier; the Miller digits are shared
-// by all lanes, so all warps run the same sequence of products.
+// warp of the block reaches every barrier; the Miller and ladder digits
+// are shared by all lanes, so all warps run the same sequence of
+// products.
 #pragma once
 
 #include "rns.cuh"
@@ -63,6 +65,18 @@ template <int S>
 struct TcLanes {
   static constexpr int G = 8;
   static constexpr int min_blocks = S == 4 ? 4 : 1;
+};
+
+// The blocks per SM of the ladder kernel (ladder_loop.cu), which holds 6
+// Fe<S> against the Miller loop's 10 and runs 2048 lanes (256 blocks) at
+// the 512-bit decrypt's working size, so no SM gets more than two blocks:
+// at S = 4 a cap of two (112 registers, no spills) beats the Miller
+// kernel's four (64 registers, 408 B spilled), 9.4-9.5 against 9.7-10.0
+// ms; at S = 6 one block beats two and three (PERF.md §6, the sweep of
+// scripts/kernel_variants.py).
+template <int S>
+struct TcLadder {
+  static constexpr int min_blocks = S == 4 ? 2 : 1;
 };
 
 // The block's shared memory, 16-byte aligned: bgn_smem (rns.cuh) under

@@ -8,7 +8,8 @@ wrapper and its plain PyTorch version (the port's counterpart of
                   lookahead normalize and one conditional subtraction of p
   mont_mul        wrapper: a CPU tensor goes to mont_mul_plain, a CUDA
                   tensor launches csrc/mont_mul.cu (which replaces both
-                  mont_mul_pallas_f32 and mont_mul_pallas) or raises; it
+                  mont_mul_pallas_f32 and mont_mul_pallas: CIOS on 32-bit
+                  words, in registers at the keys' widths) or raises; it
                   counts its launches in `mont_mul.launches`
 
 Contract (both): a, b int64 [L, *batch] of one shape (broadcast views are
@@ -69,8 +70,7 @@ def mont_mul(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((L, n), dtype=torch.int64, device=a.device)
     if n:
         launch("bgn_mont_mul", ptr(a2), a2.stride(0), a2.stride(1), ptr(b2),
-               b2.stride(0), b2.stride(1), ptr(ctx.p), ctx.pinv, L, ptr(out),
-               n)
+               b2.stride(0), b2.stride(1), ptr(ctx.p), L, ptr(out), n)
         mont_mul.launches += 1
     return out.reshape(shape)
 

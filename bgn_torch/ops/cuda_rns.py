@@ -47,11 +47,11 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Twelve of them
+two extension matrices in device memory above k = 96).  Eleven of them
 compute the base extensions as exact 32-bit integer dot products per
-warp; miller_loop runs blocks of G lanes whose warps compute them
-together on the tensor cores, from the u8 planes of the extension
-matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what
+warp; miller_loop and ladder_loop run blocks of G lanes whose warps
+compute them together on the tensor cores, from the u8 planes of the
+extension matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what
 bounds them and why.  They agree with the plain versions bit for bit.
 """
 
@@ -557,18 +557,20 @@ def ladder_loop_plain(rns: RNSCtx, X, Y, Z, ax, ay, digits):
 
 
 def ladder_loop(rns: RNSCtx, X, Y, Z, ax, ay, digits):
-    """Wrapper: the whole ladder as one kernel on the card.  X, Y, Z, ax,
-    ay: [2k, N] residues; digits: [nd] shared."""
+    """Wrapper: the whole ladder as one kernel on the card, blocks of
+    lanes (csrc/rns_tc.cuh TcLanes) whose base extensions run on the
+    tensor cores (the planes of `tc_planes`), as miller_loop's.  X, Y, Z,
+    ax, ay: [2k, N] residues; digits: [nd] shared."""
     if _is_cpu(X):
         return ladder_loop_plain(rns, X, Y, Z, ax, ay, digits)
     n = _check_state(rns, X, Y, Z, ax, ay)
     dg = _digits_dev(digits, X.device)
     ox, oy, oz = (torch.empty_like(X) for _ in range(3))
     if n:
-        _launch("bgn_ladder_loop", _ptr(const_blob(rns)), rns.k,
-                slots_for(rns.k), _ptr(X), _ptr(Y), _ptr(Z), _ptr(ax),
-                _ptr(ay), _ptr(dg), dg.numel(), _ptr(ox), _ptr(oy),
-                _ptr(oz), n)
+        _launch("bgn_ladder_loop", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, slots_for(rns.k), _ptr(X),
+                _ptr(Y), _ptr(Z), _ptr(ax), _ptr(ay), _ptr(dg), dg.numel(),
+                _ptr(ox), _ptr(oy), _ptr(oz), n)
         ladder_loop.launches += 1
     return ox, oy, oz
 

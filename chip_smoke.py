@@ -10,20 +10,24 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the build of every kernel in bgn_torch/csrc with nvcc's -Xptxas -v
      report (registers, shared memory, spills) for every instantiation of
      the RNS kernels, S = 4 slots (k <= 64), S = 6 (k <= 96) and S = 12
-     (k <= 192, the extension matrices in device memory), mont_mul (limb
-     caps 160 and 264) and the two digit-domain Miller step kernels (limb
-     caps 40 and 64); the count of tensor-core IMMA instructions in the
-     SASS of the Miller loop kernel (blocks of G lanes, base extensions on
-     the tensor cores: csrc/rns_tc.cuh) for each S, which must be > 0;
+     (k <= 192, the extension matrices in device memory), mont_mul (the
+     register kernels for W = 17, 33, 65 and 129 words, G threads per
+     lane, and the local-memory loop for any other L) and the two
+     digit-domain Miller step kernels (limb caps 40 and 64); the count of
+     tensor-core IMMA instructions in the SASS of the Miller loop and
+     ladder kernels (blocks of G lanes, base extensions on the tensor
+     cores: csrc/rns_tc.cuh) for each S, which must be > 0;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
      N = batch, pow_step also at N = 1; miller_loop also at N = batch - 3
-     and N = 1, a ragged last block), and mont_mul at L = 34
-     (N = 8192, also with a broadcast R^2 operand), L = 66, L = 130 and
-     L = 258 (a 4096-bit modulus, the widest cap; N = 512), against its
-     plain PyTorch version on the same inputs
+     and N = 1, a ragged last block; ladder_loop with three identity-base
+     lanes, also at N = decrypt-batch - 3), and mont_mul at L = 34
+     (N = 8192, also with a broadcast R^2 operand, and at N = 1 and 8191),
+     L = 66, L = 130, L = 258 (a 4096-bit modulus, the widest; N = 512)
+     and the odd L = 35 (N = 512), the local-memory loop also at the four
+     even L, against its plain PyTorch version on the same inputs
      (torch.equal: the kernels are exact integer arithmetic), with the
      kernel's and the plain version's times (CUDA events); then a chain
      of step-kernel launches (the per-step configuration's host loop)
@@ -257,7 +261,9 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     """One call of fn under torch.profiler: wall time, summed device time
     of its kernels (device-side events only, so a torch op and the kernel
     it launches are not both counted), the device's idle share, the
-    costliest kernels and each wrapper's launches in the call.  The raw
+    costliest kernels and every kernel of the port's own (bgn_*), each
+    with its share of the busy time, and each wrapper's launches in the
+    call.  The raw
     events are read directly: key_averages() takes minutes over the ~10^6
     events of a limb-path call.  The profiler's own host overhead
     lengthens the wall time, so the idle share is an upper estimate."""
@@ -281,23 +287,28 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     log(f"trace {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall:.3f}, "
         f"{sum(n for _, n in by_name.values())} device ops [{card}]")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :top]:
-        log(f"  {ms:9.2f} ms  x{n:<6d} {name[:70]}")
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in rows[:top] + [r for r in rows[top:]
+                                       if "bgn_" in r[0]]:
+        log(f"  {ms:9.2f} ms {100 * ms / max(busy, 1e-9):5.1f} %  x{n:<6d} "
+            f"{name[:70]}")
     log("  launches: " + str({name: wfn.launches
                               for name, wfn in wrappers.items()
                               if wfn.launches}))
 
 
 def ptxas_table(report: str) -> list:
-    """Per kernel entry and slot count: registers, and the largest stack
-    frame and spill sizes ptxas reports for the entry and its callees."""
+    """Per kernel entry and template arguments (the slot count S, a limb
+    cap, or mont_mul's words W and threads per lane G): registers, and the
+    largest stack frame and spill sizes ptxas reports for the entry and
+    its callees."""
     rows, cur = [], None
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '_Z\d+bgn_(\w+?)_kernel"
-                      r"(?:ILi(\d+)E)?", line)
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
         if m:
             cur = {"kernel": m.group(1), "S": int(m.group(2) or 0),
+                   "G": int(m.group(3) or 0),
                    "registers": None, "stack": 0, "spill_stores": 0,
                    "spill_loads": 0}
             rows.append(cur)
@@ -313,7 +324,7 @@ def ptxas_table(report: str) -> list:
             for key, v in zip(("stack", "spill_stores", "spill_loads"),
                               m.groups()):
                 cur[key] = max(cur[key], int(v))
-    return sorted(rows, key=lambda r: (r["kernel"], r["S"]))
+    return sorted(rows, key=lambda r: (r["kernel"], r["S"], r["G"]))
 
 
 def sass_counts(obj: Path, nvcc: str, opcode: str) -> dict:
@@ -411,11 +422,15 @@ def main() -> None:
     _build.library()
     log(f"build: {time.time() - t0:.1f} s (nvcc, {len(list(_build.CSRC.glob('*.cu')))} "
         "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots, "
-        "each digit kernel for limb caps 40 and 64)")
-    for r in ptxas_table(_build.BUILD_INFO["ptxas"]):
-        tag = "cap" if r["kernel"] in ("mont_mul", "miller_dbl_digits",
-                                       "miller_add_digits") else "S"
-        log(f"  ptxas {r['kernel']:<18s} {tag}={r['S']}: {r['registers']} "
+        "each digit kernel for limb caps 40 and 64, mont_mul for the "
+        "keys' word counts and its loop for any L)")
+    ptxas = ptxas_table(_build.BUILD_INFO["ptxas"])
+    for r in ptxas:
+        tag = {"mont_words": f"W={r['S']} G={r['G']}", "mont_loop": "any L",
+               "miller_dbl_digits": f"cap={r['S']}",
+               "miller_add_digits": f"cap={r['S']}"}.get(r["kernel"],
+                                                         f"S={r['S']}")
+        log(f"  ptxas {r['kernel']:<18s} {tag}: {r['registers']} "
             f"registers, stack {r['stack']} B, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     for k_ in (45, 90, 185):
@@ -426,12 +441,15 @@ def main() -> None:
             f"constants; miller_loop: "
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
-    imma = sass_counts(_build.BUILD_DIR / "miller_loop.o", _build._nvcc(),
-                       "IMMA")
-    log(f"  IMMA (tensor-core) instructions in the SASS of "
-        f"bgn_miller_loop_kernel<S> and its callees: {imma}")
-    if any(imma.get(S_, 0) < 1 for S_ in cuda_rns.SLOTS):
-        raise AssertionError(f"no IMMA in the Miller kernel's SASS: {imma}")
+    imma = {}
+    for name in ("miller_loop", "ladder_loop"):
+        imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
+                                 _build._nvcc(), "IMMA")
+        log(f"  IMMA (tensor-core) instructions in the SASS of "
+            f"bgn_{name}_kernel<S> and its callees: {imma[name]}")
+        if any(imma[name].get(S_, 0) < 1 for S_ in cuda_rns.SLOTS):
+            raise AssertionError(f"no IMMA in the SASS of {name}: "
+                                 f"{imma[name]}")
     phase_done("1 (card, build)")
 
     # -- 2. keys --------------------------------------------------------
@@ -606,13 +624,19 @@ def main() -> None:
                 log(f"kernel miller_loop N={n} ({key_bits}-bit): equal to "
                     "plain")
 
-        # ladder_loop (L1 decrypt: csk = C^q1) at Bd lanes
-        cx, cy = ax[:, :Bd].contiguous(), ay[:, :Bd].contiguous()
+        # ladder_loop (L1 decrypt: csk = C^q1) at Bd lanes, a few of them
+        # identity-base lanes (x = y = 0 limbs: zero residues), as
+        # scalar_mul_rns passes them
+        cx, cy = ax[:, :Bd].clone(), ay[:, :Bd].clone()
+        ident = sorted({0, Bd // 3, Bd - 1})
+        cx[:, ident] = 0
+        cy[:, ident] = 0
         one = rns.one_rns.expand_as(cx).contiguous()
         qd = np.asarray(sk.q1_naf)[1:][:trunc]
         e, mm = ops_of(k, {"dbl_pt": len(qd),
                            "add_pt": int(np.count_nonzero(qd))})
-        lad = check("ladder_loop", f"N={Bd}, q1_naf={len(qd)}",
+        lad = check("ladder_loop", f"N={Bd}, q1_naf={len(qd)}, identity "
+                    f"lanes {ident}",
                     lambda: cuda_rns.ladder_loop(rns, cx, cy, one, cx, cy,
                                                  qd),
                     lambda: cuda_rns.ladder_loop_plain(rns, cx, cy, one, cx,
@@ -623,6 +647,16 @@ def main() -> None:
                     lambda: cuda_rns._ladder_chain(
                         rns, cx, cy, one, cx, cy, qd, cuda_rns.pt_dbl,
                         cuda_rns.pt_add), key_bits)
+        if key_bits == 512:           # a short last block of G lanes
+            n = Bd - 3
+            args_n = tuple(v[:, :n].contiguous() for v in (cx, cy, one))
+            got = cuda_rns.ladder_loop(rns, *args_n, *args_n[:2], qd)
+            want = cuda_rns.ladder_loop_plain(rns, *args_n, *args_n[:2], qd)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"ladder_loop N={n} != plain")
+            log(f"kernel ladder_loop N={n}, identity lanes "
+                f"{[i for i in ident if i < n]} ({key_bits}-bit): equal to "
+                "plain")
 
         # pow_loop: the norm inversion of _fp2_inv (N = B), normalize (N = 1)
         aa, bb = rn.r_mul_many(rns, [(rn.RVal(fr, 9), rn.RVal(fr, 9)),
@@ -718,18 +752,28 @@ def main() -> None:
     def mont_checks(seed):
         """mont_mul against its plain version: L = 34 (the 512-bit key's
         limbs) at B lanes, also with a broadcast R^2 operand (to_mont's
-        stride-0 lanes), and L = 66, 130 and 258 (1024-, 2048- and
-        4096-bit keys; 258 is the widest limb cap) at 512 lanes over
-        random odd moduli."""
+        stride-0 lanes), at 1 and B - 1 lanes; L = 66, 130 and 258 (1024-,
+        2048- and 4096-bit keys; 258 is the widest) and the odd L = 35 at
+        512 lanes over random odd moduli of 16 L bits.  At the keys' widths the
+        local-memory loop (bgn_mont_mul_loop, which bgn_mont_mul runs at
+        every other L) is checked and timed beside the register kernel."""
         mrng = random.Random(seed)
-        for bits, n in ((512, B), (1024, 512), (2048, 512), (4096, 512)):
+
+        def loop_kernel(c, x, y):
+            out = torch.empty_like(x)
+            _build.launch("bgn_mont_mul_loop", _build.ptr(x), x.stride(0),
+                          x.stride(1), _build.ptr(y), y.stride(0),
+                          y.stride(1), _build.ptr(c.p), c.L,
+                          _build.ptr(out), x.shape[1])
+            return out
+
+        for bits, Lm, n in ((512, L, B), (1024, 66, 512), (2048, 130, 512),
+                            (4096, 258, 512), (528, 35, 512)):
             if bits == 512:
                 mctx = ctx
             else:
-                pm = mrng.getrandbits(bits + 32) | (1 << (bits + 31)) | 1
-                mctx = mg.make_mont_ctx(
-                    pm, L=lb.num_limbs_for_bits(bits + 32), device=dev)
-            Lm = mctx.L
+                pm = mrng.getrandbits(16 * Lm) | (1 << (16 * Lm - 1)) | 1
+                mctx = mg.make_mont_ctx(pm, L=Lm, device=dev)
             x, y = (torch.as_tensor(lb.ints_to_limbs(
                 [mrng.randrange(mctx.p_host) for _ in range(n)], Lm),
                 device=dev) for _ in range(2))
@@ -742,6 +786,22 @@ def main() -> None:
                       lambda c=mctx, y_=yy: cuda_mont.mont_mul(c, x, y_),
                       lambda c=mctx, y_=yy: cuda_mont.mont_mul_plain(c, x, y_),
                       (0, 0, mont_mads(Lm) * n), nbytes, bits)
+            if Lm % 2 == 0:
+                want = cuda_mont.mont_mul_plain(mctx, x, y)
+                if not torch.equal(loop_kernel(mctx, x, y), want):
+                    raise AssertionError(f"mont_mul loop L={Lm} != plain")
+                t = cuda_ms(lambda c=mctx: loop_kernel(c, x, y), torch)
+                results["mont_mul"][-len(cases)]["loop_ms"] = t
+                log(f"  mont_mul L={Lm}, N={n} on the local-memory loop: "
+                    f"equal to plain; {t:.4f} ms [{card}]")
+            if bits == 512:           # ragged lane counts
+                for m in (1, n - 1):
+                    got = cuda_mont.mont_mul(mctx, x[:, :m], y[:, :m])
+                    want = cuda_mont.mont_mul_plain(mctx, x[:, :m], y[:, :m])
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"mont_mul L={Lm}, N={m} != "
+                                             "plain")
+                    log(f"kernel mont_mul L={Lm}, N={m}: equal to plain")
 
     mont_checks(args.seed + 8)
 
@@ -1400,8 +1460,11 @@ def main() -> None:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "match": True, "shape": main["shape"],
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
-        if name == "miller_loop":
-            kernels[-1]["sass_imma"] = imma
+        if name in imma:
+            kernels[-1]["sass_imma"] = imma[name]
+        kernels[-1]["ptxas"] = [
+            r for r in ptxas if r["kernel"] == name
+            or (name == "mont_mul" and r["kernel"].startswith("mont_"))]
         if name == "mont_mul":
             kernels.append(dict(kernels[-1], name=MONT_U32[0],
                                 replaces=MONT_U32[1]))

@@ -1,0 +1,234 @@
+#!/usr/bin/env python3
+"""Time build variants of mont_mul.cu and ladder_loop.cu on one CUDA card.
+
+    python3 scripts/kernel_variants.py [--kernels mont ladder]
+                                       [--out build/kernel_variants.json]
+
+It builds the kernel library from bgn_torch/csrc as chip_smoke.py does
+and prints nvcc's -Xptxas -v lines of the two kernels.  Then, for each
+variant, it recompiles one source from a copy of csrc/ with one constant
+changed, links it with the other objects of the build into a library of
+its own, and times the port's wrapper on that library (CUDA events, the
+timing of chip_smoke.py), two turns in opposite orders:
+  - ladder_loop.cu: the blocks per SM that __launch_bounds__ asks of the
+    register budget at S = 4 and S = 6 (the shipped kernel takes
+    TcLadder<S>::min_blocks; (4, 1) is the Miller kernel's TcLanes), at
+    k = 45-47 (N = 2048, 255 digits), 90-92 (N = 64 and 512, 511 digits)
+    and 184-186 (N = 16, 32 digits) over random residues modulo random
+    primes;
+  - mont_mul.cu: the threads per lane G of each register kernel (the
+    shipped G and four other sets), and the local-memory loop
+    (bgn_mont_mul_loop), at L = 34 (N = 8192) and L = 66, 130, 258
+    (N = 512).
+Every variant's output is torch.equal to the plain version's, or the
+script raises.  The shipped sources are not changed.  The variants'
+builds take most of its time (both kernels: ~15 minutes on the H100
+machine's 8 cores).  Needs the card: without one it exits nonzero
+before timing anything.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import random
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+LADDER_BOUNDS = ("__launch_bounds__(32 * TcLanes<S>::G, "
+                 "TcLadder<S>::min_blocks)")
+# (blocks per SM at S = 4, at S = 6); S = 12 keeps one block
+LADDER_VARIANTS = [(1, 1), (2, 2), (3, 3), (4, 1), (5, 1), (6, 1)]
+MONT_CASE = re.compile(
+    r"case (\d+):\s*return bgn_mont_words_launch<(\d+), (\d+)>")
+# threads per lane at L = 34, 66, 130, 258
+MONT_VARIANTS = [(1, 1, 8, 16), (2, 2, 4, 8), (4, 4, 16, 32), (1, 4, 16, 32)]
+
+
+def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
+    """variants: {name: (source file, [(old, new)])} -> {name: library}.
+    Each copy of csrc/ gets its replacements (each must match), one nvcc
+    per variant, all started together, then one link each with the other
+    objects of the default build."""
+    from bgn_torch import _build
+    procs = {}
+    for name, (src, reps) in variants.items():
+        d = build_dir / "variants" / name
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for h in csrc.glob("*.cuh"):
+            shutil.copy(h, d / h.name)
+        text = (csrc / src).read_text()
+        for old, new in reps:
+            if old not in text:
+                raise ValueError(f"{name}: {old!r} not in {src}")
+            text = text.replace(old, new)
+        (d / src).write_text(text)
+        obj = d / (Path(src).stem + ".o")
+        cmd = [nvcc, _build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-c", str(d / src), "-o", str(obj)]
+        procs[name] = (src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, reports = {}, {}
+    for name, (src, obj, proc) in procs.items():
+        out, _ = proc.communicate()
+        reports[name] = out
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}\n{out}")
+        others = [o for o in sorted(build_dir.glob("*.o"))
+                  if o.stem != Path(src).stem]
+        lib = obj.parent / "libvariant.so"
+        subprocess.run([nvcc, _build.ARCH, "-shared", "-o", str(lib), str(obj)]
+                       + [str(o) for o in others], check=True)
+        cdll = ctypes.CDLL(str(lib))
+        for entry, argtypes in _build._SIGNATURES.items():
+            fn = getattr(cdll, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        cdll.bgn_error_string.argtypes = [ctypes.c_int]
+        cdll.bgn_error_string.restype = ctypes.c_char_p
+        libs[name] = cdll
+    return libs, reports
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", nargs="+", choices=("mont", "ladder"),
+                    default=["mont", "ladder"])
+    ap.add_argument("--out", default=str(ROOT / "build"
+                                         / "kernel_variants.json"))
+    args = ap.parse_args()
+    t0 = time.time()
+
+    def log(msg):
+        print(f"[{time.time() - t0:6.1f} s] {msg}", flush=True)
+
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("kernel_variants.py: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from bgn_torch import _build, hostmath as hm
+    from bgn_torch.fieldcore import cuda_mont, limbs as lb, montgomery as mg
+    from bgn_torch.fieldcore import rns as rn
+    from bgn_torch.ops import cuda_rns
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(card)
+    _build.build(force=True)
+    shipped = _build.library()
+    log(f"built the library in {_build.BUILD_INFO['seconds']:.1f} s")
+    for r in cs.ptxas_table(_build.BUILD_INFO["ptxas"]):
+        if r["kernel"].startswith(("mont_", "ladder_loop")):
+            log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
+                f"{r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+    variants = {}
+    if "ladder" in args.kernels:
+        for b4, b6 in LADDER_VARIANTS:
+            variants[f"ladder b4={b4} b6={b6}"] = ("ladder_loop.cu", [(
+                LADDER_BOUNDS, "__launch_bounds__(32 * TcLanes<S>::G, "
+                f"S == 4 ? {b4} : S == 6 ? {b6} : 1)")])
+    if "mont" in args.kernels:
+        cases = sorted(((int(m.group(1)), m.group(0)) for m in
+                        MONT_CASE.finditer((_build.CSRC / "mont_mul.cu")
+                                           .read_text())))
+        for gs in MONT_VARIANTS:
+            reps = [(text, f"case {L}: return bgn_mont_words_launch<"
+                     f"{L // 2}, {g}>") for (L, text), g in zip(cases, gs)]
+            variants["mont G=" + ",".join(map(str, gs))] = ("mont_mul.cu",
+                                                            reps)
+    libs, reports = compile_variants(_build.BUILD_DIR, _build.CSRC,
+                                     _build._nvcc(), variants)
+    log(f"built {len(libs)} variants")
+    for name, rep in reports.items():
+        for r in cs.ptxas_table(rep):
+            log(f"  ptxas [{name}] {r['kernel']} {r['S']} {r['G']}: "
+                f"{r['registers']} registers, spill stores "
+                f"{r['spill_stores']} B")
+    libs = {"shipped": shipped, **libs}
+
+    dev = torch.device("cuda")
+    rng = random.Random(7)
+    jobs = []                          # (label, lib names, fn, want)
+    if "ladder" in args.kernels:       # random residues, random primes
+        for bits, shapes in ((528, ((2048, 255),)),
+                             (1056, ((64, 511), (512, 511))),
+                             (2080, ((16, 32),))):
+            p = hm.gen_prime(bits, rng=rng)
+            rns = rn.make_rns_ctx(p, device=dev)
+            for n, nd in shapes:
+                st = [rn.to_rns_mont(rns, torch.as_tensor(lb.ints_to_limbs(
+                    [rng.randrange(p) for _ in range(n)], rns.L),
+                    device=dev)).v.contiguous() for _ in range(2)]
+                one = rns.one_rns.expand_as(st[0]).contiguous()
+                digits = [rng.choice((-1, 0, 0, 1)) for _ in range(nd)]
+                ins = (st[0], st[1], one, st[0], st[1], digits)
+                names = ["shipped"] + [v for v in libs
+                                       if v.startswith("ladder")]
+                jobs.append((f"ladder_loop k={rns.k} N={n} digits={nd}",
+                             names,
+                             lambda r=rns, a=ins: cuda_rns.ladder_loop(r, *a),
+                             cuda_rns.ladder_loop_plain(rns, *ins)))
+        log("ladder inputs and plain outputs ready")
+    if "mont" in args.kernels:         # random full-width odd moduli
+        for L, n in ((34, 8192), (66, 512), (130, 512), (258, 512)):
+            pm = rng.getrandbits(16 * L) | (1 << (16 * L - 1)) | 1
+            ctx = mg.make_mont_ctx(pm, L=L, device=dev)
+            x, y = (torch.as_tensor(lb.ints_to_limbs(
+                [rng.randrange(pm) for _ in range(n)], L), device=dev)
+                for _ in range(2))
+            want = cuda_mont.mont_mul_plain(ctx, x, y)
+            names = ["shipped"] + [v for v in libs if v.startswith("mont")]
+            jobs.append((f"mont_mul L={L} N={n}", names,
+                         lambda c=ctx, a=x, b=y: cuda_mont.mont_mul(c, a, b),
+                         want))
+
+            def loop(c=ctx, a=x, b=y):
+                out = torch.empty_like(a)
+                _build.launch("bgn_mont_mul_loop", _build.ptr(a),
+                              a.stride(0), a.stride(1), _build.ptr(b),
+                              b.stride(0), b.stride(1), _build.ptr(c.p), c.L,
+                              _build.ptr(out), a.shape[1])
+                return out
+            jobs.append((f"mont_mul L={L} N={n} local-memory loop",
+                         ["shipped"], loop, want))
+
+    real_library = _build.library
+    times = {}
+    try:
+        for turn in (0, 1):
+            for label, names, fn, want in jobs:
+                for name in (names if turn == 0 else names[::-1]):
+                    _build.library = lambda lib=libs[name]: lib
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    w = want if isinstance(want, tuple) else (want,)
+                    if not all(torch.equal(g, v) for g, v in zip(got, w)):
+                        raise AssertionError(f"{label} [{name}] != plain")
+                    ms = cs.cuda_ms(fn, torch)
+                    times.setdefault(label, {}).setdefault(name, []).append(ms)
+            log(f"turn {turn} timed")
+    finally:
+        _build.library = real_library
+    for label, per in times.items():
+        print(label, flush=True)
+        for name, ms in per.items():
+            print(f"  {name:<24s} {ms[0]:.4f} / {ms[1]:.4f} ms "
+                  f"(equal to plain) [{card}]", flush=True)
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps({"card": card, "ms": times},
+                                         indent=1))
+
+
+if __name__ == "__main__":
+    main()

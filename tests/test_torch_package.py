@@ -1,8 +1,9 @@
-"""Package rules of bgn_torch: no JAX and nothing of bgn_tpu in the port or
-in chip_smoke.py; entry points default to the card; every kernel wrapper
-counts launches and sends CPU tensors to its plain version; and the
-kernels' integer base extension (csrc/rns.cuh r_mul, emulated here in
-numpy over the same constant blob) equals the plain r_mul bit for bit.
+"""Package rules of bgn_torch: no JAX and nothing of bgn_tpu in the port,
+chip_smoke.py or the port's scripts/; entry points default to the card;
+every kernel wrapper counts launches and sends CPU tensors to its plain
+version; and the kernels' integer base extension (csrc/rns.cuh r_mul,
+emulated here in numpy over the same constant blob) equals the plain
+r_mul bit for bit.
 """
 import ast
 import math
@@ -31,9 +32,9 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("where", ["bgn_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["bgn_torch", "chip_smoke.py", "scripts"])
 def test_no_jax_and_no_bgn_tpu(where):
-    files = sorted((ROOT / where).rglob("*.py")) if where == "bgn_torch" \
+    files = sorted((ROOT / where).rglob("*.py")) if where != "chip_smoke.py" \
         else [ROOT / where]
     assert files and all(f.exists() for f in files)
     for f in files:

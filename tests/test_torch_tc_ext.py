@@ -3,7 +3,9 @@ the u8 planes of the extension matrices (cuda_rns.tc_planes) against the
 matrices of the constant blob through their documented index map, and an
 integer emulation of the kernel's block product (the m16n8k32 fragments,
 the four plane products, their combination) against the extension sums of
-the plain r_mul (fieldcore/rns.py), bit for bit.  No JAX.
+the plain r_mul (fieldcore/rns.py), bit for bit, also on every product of
+a ladder as scalar_mul_rns runs it (identity-base lanes, a short last
+block).  No JAX.
 
 The moduli are odd numbers p = 3 mod 4 with no factor below 2000 that
 pass Fermat tests to six bases, found from a seed; their widths give
@@ -16,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from bgn_torch.fieldcore import limbs as lb
+from bgn_torch.fieldcore import montgomery as mg
 from bgn_torch.fieldcore import rns as trn
-from bgn_torch.ops import cuda_rns
+from bgn_torch.ops import cuda_rns, curve
+from bgn_torch.ops import rns_pairing as rp
 
 WIDTHS = {544: 47, 1056: 92, 2080: 186}
 
@@ -172,3 +177,63 @@ def test_block_product_equals_plain_extension_sums(ctx, kind):
              for b in (0, G)], axis=1).astype(np.int64)
         np.testing.assert_array_equal(got[:, :n], want)
         assert not got[:, n:].any()
+
+
+def test_block_product_on_the_ladder_inputs(ctx, monkeypatch):
+    """The ladder kernel's products (csrc/ladder_loop.cu, dbl_pt and
+    add_pt on r_mul_tc) on the inputs rns_pairing.scalar_mul_rns gives
+    it: 13 lanes of an L1 decrypt's ciphertext points, lanes 3 and 7 the
+    identity (x = y = 0, as curve.to_affine leaves it), padded to two
+    blocks of G = 8 with the zero lanes the kernel runs past n.  Every
+    source residue that a product writes to the planes is below 4096,
+    and the emulated block product equals the plain extension sums of
+    every product of the ladder, both extensions, bit for bit; the padded
+    ladder's 13 lanes equal the unpadded one's."""
+    k, n, G = ctx.k, 13, 8
+    p = lb.limbs_to_ints(ctx.p_limbs.reshape(-1, 1))[0]
+    rng = random.Random(k)
+    mctx = mg.make_mont_ctx(p, L=ctx.L, device="cpu")
+    xs = [rng.randrange(p) for _ in range(n)]
+    ys = [rng.randrange(p) for _ in range(n)]
+    inf = np.zeros(n, dtype=np.int64)
+    for i in (3, 7):
+        xs[i] = ys[i] = 0
+        inf[i] = 1
+    base = curve.AffinePoint(torch.as_tensor(lb.ints_to_limbs(xs, mctx.L)),
+                             torch.as_tensor(lb.ints_to_limbs(ys, mctx.L)),
+                             torch.as_tensor(inf))
+    unpadded, records = [], []
+    real_dot = trn._ext_dot
+
+    def recording_dot(W, x):
+        records.append((0 if W is ctx.w1 else 1, x))
+        return real_dot(W, x)
+
+    def padded_ladder(rns, X, Y, Z, ax, ay, digits):
+        unpadded.append(cuda_rns.ladder_loop_plain(rns, X, Y, Z, ax, ay,
+                                                   digits))
+        pad = [torch.cat([v, torch.zeros_like(v[:, :2 * G - n])], dim=1)
+               for v in (X, Y, Z, ax, ay)]
+        monkeypatch.setattr(trn, "_ext_dot", recording_dot)
+        out = cuda_rns.ladder_loop_plain(rns, *pad, digits)
+        monkeypatch.setattr(trn, "_ext_dot", real_dot)
+        return out
+
+    monkeypatch.setattr(cuda_rns, "ladder_loop", padded_ladder)
+    monkeypatch.setattr(rp, "_PALLAS_MODE", "loop")
+    out = rp.scalar_mul_rns(mctx, ctx, base, [1, 1, -1])
+    for got, want in zip(out, unpadded[0]):
+        assert torch.equal(got.v[:, :n], want)
+    # the plain steps stack independent products along the lanes
+    # (r_mul_many): 2G columns per product, 2 doublings and 2 additions
+    products = [x.shape[1] // (2 * G) for mat, x in records if mat == 0]
+    assert sum(products) == 2 * 9 + 2 * 11
+    for mat, x in records:
+        q = (x[:k] * 64 + x[k:]).numpy().astype(np.int64)   # [k, 2G * j]
+        assert q.min() >= 0 and q.max() < 4096
+        want = _plain_sums(ctx, ctx.w1 if mat == 0 else ctx.w2,
+                           torch.tensor(q, dtype=torch.float32))
+        got = np.concatenate(
+            [_block_extension(ctx, mat, q[:, b:b + G], G).T
+             for b in range(0, q.shape[1], G)], axis=1).astype(np.int64)
+        np.testing.assert_array_equal(got, want)
