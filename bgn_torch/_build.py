@@ -30,16 +30,17 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types, the stream last; the RNS kernels take
-# (blob, k, slots, ...) first, miller_loop and ladder_loop (blob, planes,
-# k, slots, ...); bgn_mont_mul_loop is mont_mul's local-memory loop at any
-# L (chip_smoke.py times it beside the register kernels)
+# (blob, k, slots, ...) first, miller_loop, ladder_loop, pow_loop and
+# fp2_pow_loop (blob, planes, k, slots, ...); bgn_mont_mul_loop is
+# mont_mul's local-memory loop at any L (chip_smoke.py times it beside the
+# register kernels)
 _SIGNATURES = {
     "bgn_mont_mul": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P, _I, _P],
     "bgn_mont_mul_loop": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P, _I, _P],
     "bgn_miller_loop": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _I,
                         _P],
-    "bgn_pow_loop": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
-    "bgn_fp2_pow_loop": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bgn_pow_loop": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P],
+    "bgn_fp2_pow_loop": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "bgn_dual_ladder": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P,
                         _P, _P, _P, _I, _P],
     "bgn_ladder_loop": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,

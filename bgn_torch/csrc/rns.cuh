@@ -59,11 +59,12 @@
 // agree bit for bit.  Above k = 192 there is no instantiation (a key with
 // more channels takes the limb path: scheme._make_rns).
 //
-// The product r_mul_v below is the one every RNS kernel runs except
-// miller_loop.cu and ladder_loop.cu, which run the block-wide tensor-core
-// product of rns_tc.cuh through the step functions' product policy
-// (dbl_step, add_step; dbl_pt, add_pt).  What bounds each on the H100 is
-// written there.
+// The product r_mul_v below is the one every RNS kernel runs except four:
+// miller_loop.cu, ladder_loop.cu, pow_loop.cu and fp2_pow_loop.cu run the
+// block-wide tensor-core product of rns_tc.cuh, the first two and the
+// last through the product policy of the step functions (dbl_step,
+// add_step; dbl_pt, add_pt; fp2_sqr, fp2_mul).  What bounds each on the
+// H100 is written there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -431,9 +432,9 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
 }
 
 // The product policy of the step functions (dbl_step, add_step, dbl_pt,
-// add_pt): Mul::mul(c, out, x, y).  The default is r_mul_v, one warp per
-// lane; miller_loop.cu and ladder_loop.cu pass the block-wide product of
-// rns_tc.cuh.
+// add_pt, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
+// r_mul_v, one warp per lane; miller_loop.cu, ladder_loop.cu and
+// fp2_pow_loop.cu pass the block-wide product of rns_tc.cuh.
 template <int S>
 struct MulWarp {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
@@ -701,29 +702,30 @@ static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
   r_sub(c, Y1, U1, U2, 3);           // Y3, 6
 }
 
-// F_p^2: (ar, ai) <- (ar + ai i)^2 with input bounds (9, 9).
-template <int S>
+// F_p^2: (ar, ai) <- (ar + ai i)^2 with input bounds (9, 9).  Mul: the
+// product policy, as for dbl_step.
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe<S>& ar,
                                                Fe<S>& ai) {
   Fe<S> ta, tb, ab;
   r_add(c, ta, ar, ai);
   r_sub(c, tb, ar, ai, 9);
-  r_mul(c, ab, ar, ai);
-  r_mul(c, ar, ta, tb);
+  Mul::mul(c, ab, ar, ai);
+  Mul::mul(c, ar, ta, tb);
   r_add(c, ai, ab, ab);
 }
 
 // F_p^2 Karatsuba: (ar, ai) <- (ar + ai i)(xr + xi i).
-template <int S>
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void fp2_mul(const RnsConsts& c, Fe<S>& ar,
                                                Fe<S>& ai, const Fe<S>& xr,
                                                const Fe<S>& xi) {
   Fe<S> t0, t1, ta, tb;
-  r_mul(c, t0, ar, xr);
-  r_mul(c, t1, ai, xi);
+  Mul::mul(c, t0, ar, xr);
+  Mul::mul(c, t1, ai, xi);
   r_add(c, ta, ar, ai);
   r_add(c, tb, xr, xi);
-  r_mul(c, ta, ta, tb);              // t2
+  Mul::mul(c, ta, ta, tb);           // t2
   r_sub(c, ar, t0, t1, 3);
   r_sub(c, tb, ta, t0, 3);
   r_sub(c, ai, tb, t1, 3);

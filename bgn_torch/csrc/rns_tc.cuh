@@ -1,7 +1,7 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
-// the product miller_loop.cu and ladder_loop.cu run.  The other RNS
-// kernels keep r_mul_v.
+// the product miller_loop.cu, ladder_loop.cu, pow_loop.cu and
+// fp2_pow_loop.cu run.  The other RNS kernels keep r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -77,6 +77,25 @@ struct TcLanes {
 template <int S>
 struct TcLadder {
   static constexpr int min_blocks = S == 4 ? 2 : 1;
+};
+
+// The blocks per SM of the tensor-core forms of pow_loop.cu (2 Fe<S> of
+// state) and fp2_pow_loop.cu (5 Fe<S> and fp2_mul's temporaries), from
+// the sweep of scripts/kernel_variants.py (PERF.md §6): pow_loop at S = 4,
+// N = 8192 (1024 blocks) runs 5.8 ms at four blocks (64 registers, no
+// spills) against 7.9 at one or two; fp2_pow_loop at N = 2048 (256
+// blocks) is best at two blocks, at S = 4 (112 registers; three or four
+// spill) and at S = 6 (128 registers against 133 at one block, so two
+// blocks fit an SM: 1.10 against 1.90 ms).  pow_loop at S = 6 is the same
+// at every cap.
+template <int S>
+struct TcPow {
+  static constexpr int min_blocks = S == 4 ? 4 : 1;
+};
+
+template <int S>
+struct TcFp2Pow {
+  static constexpr int min_blocks = S == 4 ? 2 : S == 6 ? 2 : 1;
 };
 
 // The block's shared memory, 16-byte aligned: bgn_smem (rns.cuh) under
@@ -280,7 +299,9 @@ static __device__ __noinline__ Fe<S> r_mul_tc(const int k, const Fe<S> x,
   return out;
 }
 
-// The product policy of dbl_step / add_step that runs r_mul_tc.
+// The product policy that runs r_mul_tc: of the step functions (dbl_step,
+// add_step, dbl_pt, add_pt) in miller_loop.cu and ladder_loop.cu, and of
+// fp2_sqr / fp2_mul in fp2_pow_loop.cu.
 template <int S>
 struct MulTc {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,

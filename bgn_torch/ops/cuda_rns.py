@@ -47,12 +47,13 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Eleven of them
+two extension matrices in device memory above k = 96).  Nine of them
 compute the base extensions as exact 32-bit integer dot products per
-warp; miller_loop and ladder_loop run blocks of G lanes whose warps
-compute them together on the tensor cores, from the u8 planes of the
-extension matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what
-bounds them and why.  They agree with the plain versions bit for bit.
+warp; miller_loop, ladder_loop, pow_loop and fp2_pow_loop run blocks of
+G lanes whose warps compute them together on the tensor cores, from the
+u8 planes of the extension matrices (`tc_planes`).  csrc/rns.cuh and
+csrc/rns_tc.cuh say what bounds them and why.  They agree with the plain
+versions bit for bit.
 """
 
 from __future__ import annotations
@@ -344,9 +345,9 @@ def pow_loop(rns: RNSCtx, x, bits):
     bt = _digits_dev(bits, x.device)
     out = torch.empty_like(x)
     if n:
-        _launch("bgn_pow_loop", _ptr(const_blob(rns)), rns.k,
-                slots_for(rns.k), _ptr(x), _ptr(bt), bt.numel(), _ptr(out),
-                n)
+        _launch("bgn_pow_loop", _ptr(const_blob(rns)), _ptr(tc_planes(rns)),
+                rns.k, slots_for(rns.k), _ptr(x), _ptr(bt), bt.numel(),
+                _ptr(out), n)
         pow_loop.launches += 1
     return out
 
@@ -390,9 +391,9 @@ def fp2_pow_loop(rns: RNSCtx, xr, xi, digits):
     dg = _digits_dev(digits, xr.device)
     owr, owi = torch.empty_like(xr), torch.empty_like(xr)
     if n:
-        _launch("bgn_fp2_pow_loop", _ptr(const_blob(rns)), rns.k,
-                slots_for(rns.k), _ptr(xr), _ptr(xi), _ptr(dg), dg.numel(),
-                _ptr(owr), _ptr(owi), n)
+        _launch("bgn_fp2_pow_loop", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, slots_for(rns.k), _ptr(xr),
+                _ptr(xi), _ptr(dg), dg.numel(), _ptr(owr), _ptr(owi), n)
         fp2_pow_loop.launches += 1
     return owr, owi
 

@@ -14,16 +14,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
      register kernels for W = 17, 33, 65 and 129 words, G threads per
      lane, and the local-memory loop for any other L) and the two
      digit-domain Miller step kernels (limb caps 40 and 64); the count of
-     tensor-core IMMA instructions in the SASS of the Miller loop and
-     ladder kernels (blocks of G lanes, base extensions on the tensor
-     cores: csrc/rns_tc.cuh) for each S, which must be > 0;
+     tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
+     pow_loop and fp2_pow_loop kernels (blocks of G lanes, base
+     extensions on the tensor cores: csrc/rns_tc.cuh) for each S, which
+     must be > 0;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
      N = batch, pow_step also at N = 1; miller_loop also at N = batch - 3
      and N = 1, a ragged last block; ladder_loop with three identity-base
-     lanes, also at N = decrypt-batch - 3), and mont_mul at L = 34
+     lanes, also at N = decrypt-batch - 3; pow_loop also at N = batch - 3,
+     64, 7, 2, short last blocks of lanes on zeros, each timed, and at
+     N = 1 the time per product of the lone chain), and mont_mul at L = 34
      (N = 8192, also with a broadcast R^2 operand, and at N = 1 and 8191),
      L = 66, L = 130, L = 258 (a 4096-bit modulus, the widest; N = 512)
      and the odd L = 35 (N = 512), the local-memory loop also at the four
@@ -231,9 +234,9 @@ def bound(elem_total: float, mm_total: float, nbytes: float,
     return t[by] * 1e3, by
 
 
-def cuda_ms(fn, torch) -> float:
+def cuda_ms(fn, torch, budget_ms: float = 1500.0) -> float:
     """Mean ms of fn() over repeated launches (CUDA events, warmed up; up
-    to 50 launches or about 1.5 s).  A sleep kernel queued ahead of the
+    to 50 launches or about budget_ms).  A sleep kernel queued ahead of the
     timed launches lets the host enqueue them while the card waits, so a
     short kernel is timed at the card's rate, not at the host's launch
     rate; a wrapper that synchronizes (the window kernels' digit checks)
@@ -246,7 +249,7 @@ def cuda_ms(fn, torch) -> float:
     e1.record()
     torch.cuda.synchronize()
     one = e0.elapsed_time(e1)
-    reps = max(1, min(50, int(1500.0 / max(one, 1e-3))))
+    reps = max(1, min(50, int(budget_ms / max(one, 1e-3))))
     torch.cuda._sleep(SLEEP_CYCLES)
     e0.record()
     for _ in range(reps):
@@ -442,7 +445,7 @@ def main() -> None:
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
     imma = {}
-    for name in ("miller_loop", "ladder_loop"):
+    for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop"):
         imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
                                  _build._nvcc(), "IMMA")
         log(f"  IMMA (tensor-core) instructions in the SASS of "
@@ -468,9 +471,12 @@ def main() -> None:
     results = {}
     f32 = 4
 
-    def check(name, shape, kern, plain, elem_mm, nbytes, key_bits):
+    def check(name, shape, kern, plain, elem_mm, nbytes, key_bits,
+              products=None):
         """The kernel against its plain version (one call of the plain
-        version, which is also its time), then the kernel's time."""
+        version, which is also its time), then the kernel's time.
+        products: the chain's products, for the time per product of a lone
+        lane."""
         got = kern()
         torch.cuda.synchronize()
         t = time.time()
@@ -490,9 +496,14 @@ def main() -> None:
         rec = {"shape": shape, "key_bits": key_bits, "ms": ms_k,
                "plain_ms": ms_p, "max_abs_err": err, "bound_ms": b_ms,
                "bound_by": b_by}
+        note = ""
+        if products:
+            rec["us_per_product"] = ms_k * 1e3 / products
+            note = (f"; {rec['us_per_product']:.2f} us per product over "
+                    f"{products} dependent products")
         log(f"kernel {name} {shape} ({key_bits}-bit): equal to plain; "
             f"{ms_k:.3f} ms (plain {ms_p:.1f} ms, bound {b_ms:.4f} ms by "
-            f"{b_by}) [{card}]")
+            f"{b_by}){note} [{card}]")
         results.setdefault(name, []).append(rec)
         return got
 
@@ -658,22 +669,25 @@ def main() -> None:
                 f"{[i for i in ident if i < n]} ({key_bits}-bit): equal to "
                 "plain")
 
-        # pow_loop: the norm inversion of _fp2_inv (N = B), normalize (N = 1)
+        # pow_loop: the norm inversion of _fp2_inv (N = B), normalize and
+        # mont_inv_rns (N = 1); at 512 bits also short last blocks (B - 3,
+        # 7, 2) and a small batch
         aa, bb = rn.r_mul_many(rns, [(rn.RVal(fr, 9), rn.RVal(fr, 9)),
                                      (rn.RVal(fi, 9), rn.RVal(fi, 9))])
         norm = rn.r_add(rns, aa, bb).v.contiguous()
-        e, mm = ops_of(k, {"r_mul": len(pm2) + int(np.count_nonzero(pm2))})
-        for n in (B, 1):
+        n_prod = len(pm2) + int(np.count_nonzero(pm2))
+        e, mm = ops_of(k, {"r_mul": n_prod})
+        for n in ((B, B - 3, 64, 7, 2, 1) if key_bits == 512 else (B, 1)):
             x = norm[:, :n].contiguous()
             pw = check("pow_loop", f"N={n}, bits={len(pm2)}",
                        lambda x=x: cuda_rns.pow_loop(rns, x, pm2),
                        lambda x=x: cuda_rns.pow_loop_plain(rns, x, pm2),
                        (n * e, n * mm), 2 * n * state + len(pm2) * 4,
-                       key_bits)
-            chain_equal("pow_loop", f"N={n}, bits={len(pm2)}", pw,
-                        lambda x=x: cuda_rns._pow_chain(rns, x, pm2,
-                                                        cuda_rns.pow_step),
-                        key_bits)
+                       key_bits, products=n_prod if n == 1 else None)
+            if n in (B, 1):
+                chain_equal("pow_loop", f"N={n}, bits={len(pm2)}", pw,
+                            lambda x=x: cuda_rns._pow_chain(
+                                rns, x, pm2, cuda_rns.pow_step), key_bits)
 
         # fp2_pow_loop: ^l (final exponentiation, B), z^q1 (decrypt, Bd)
         f = (rn.RVal(fr, 9), rn.RVal(fi, 9))

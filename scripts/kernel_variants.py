@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time build variants of mont_mul.cu and ladder_loop.cu on one CUDA card.
+"""Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu and
+fp2_pow_loop.cu on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels mont ladder]
+    python3 scripts/kernel_variants.py [--kernels mont ladder pow]
                                        [--out build/kernel_variants.json]
 
 It builds the kernel library from bgn_torch/csrc as chip_smoke.py does
-and prints nvcc's -Xptxas -v lines of the two kernels.  Then, for each
-variant, it recompiles one source from a copy of csrc/ with one constant
-changed, links it with the other objects of the build into a library of
-its own, and times the port's wrapper on that library (CUDA events, the
-timing of chip_smoke.py), two turns in opposite orders:
+and prints nvcc's -Xptxas -v lines of the kernels swept.  Then, for each
+variant, it recompiles the sources concerned from a copy of csrc/ with
+one constant changed (in a source or a header), links them with the
+other objects of the build into a library of its own, and times the
+port's wrapper on that library (CUDA events, the timing of
+chip_smoke.py), two turns in opposite orders:
   - ladder_loop.cu: the blocks per SM that __launch_bounds__ asks of the
     register budget at S = 4 and S = 6 (the shipped kernel takes
     TcLadder<S>::min_blocks; (4, 1) is the Miller kernel's TcLanes), at
@@ -19,10 +21,17 @@ timing of chip_smoke.py), two turns in opposite orders:
   - mont_mul.cu: the threads per lane G of each register kernel (the
     shipped G and four other sets), and the local-memory loop
     (bgn_mont_mul_loop), at L = 34 (N = 8192) and L = 66, 130, 258
-    (N = 512).
+    (N = 512);
+  - pow_loop.cu and fp2_pow_loop.cu (--kernels pow): the shipped build
+    at N = 1, 16, 64, 512, 2048 and 8192, and the blocks per SM that
+    __launch_bounds__ asks at S = 4 and S = 6 (rns_tc.cuh TcPow<S>,
+    TcFp2Pow<S>) at N = 8192 (pow_loop) and 2048 (fp2_pow_loop), at
+    k = 45-47, 90-92 and 184-186 over random residues modulo random
+    primes: pow_loop over the bits of p - 2 (64 bits at k = 184-186),
+    fp2_pow_loop over 64 random signed digits.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
-builds take most of its time (both kernels: ~15 minutes on the H100
+builds take most of its time (mont and ladder: ~15 minutes on the H100
 machine's 8 cores).  Needs the card: without one it exits nonzero
 before timing anything.
 """
@@ -49,43 +58,54 @@ MONT_CASE = re.compile(
     r"case (\d+):\s*return bgn_mont_words_launch<(\d+), (\d+)>")
 # threads per lane at L = 34, 66, 130, 258
 MONT_VARIANTS = [(1, 1, 8, 16), (2, 2, 4, 8), (4, 4, 16, 32), (1, 4, 16, 32)]
+POW_SOURCES = ["pow_loop.cu", "fp2_pow_loop.cu"]
+# blocks per SM of the two power kernels (at S = 4, at S = 6)
+POW_BLOCKS = [(1, 1), (2, 2), (3, 1), (4, 1)]
+POW_N = (1, 16, 64, 512, 2048, 8192)
 
 
 def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
-    """variants: {name: (source file, [(old, new)])} -> {name: library}.
-    Each copy of csrc/ gets its replacements (each must match), one nvcc
-    per variant, all started together, then one link each with the other
-    objects of the default build."""
+    """variants: {name: ([source files], [(file, old, new)])} -> {name:
+    library}.  Each copy of csrc/ gets its replacements (each must match,
+    in a source or a header), one nvcc per source and variant, all started
+    together, then one link each with the other objects of the default
+    build."""
     from bgn_torch import _build
     procs = {}
-    for name, (src, reps) in variants.items():
+    for name, (srcs, reps) in variants.items():
         d = build_dir / "variants" / name
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for h in csrc.glob("*.cuh"):
-            shutil.copy(h, d / h.name)
-        text = (csrc / src).read_text()
-        for old, new in reps:
+        for f in list(csrc.glob("*.cuh")) + [csrc / src for src in srcs]:
+            shutil.copy(f, d / f.name)
+        for fname, old, new in reps:
+            text = (d / fname).read_text()
             if old not in text:
-                raise ValueError(f"{name}: {old!r} not in {src}")
-            text = text.replace(old, new)
-        (d / src).write_text(text)
-        obj = d / (Path(src).stem + ".o")
-        cmd = [nvcc, _build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-c", str(d / src), "-o", str(obj)]
-        procs[name] = (src, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+                raise ValueError(f"{name}: {old!r} not in {fname}")
+            (d / fname).write_text(text.replace(old, new))
+        for src in srcs:
+            obj = d / (Path(src).stem + ".o")
+            cmd = [nvcc, _build.ARCH, "-std=c++17", "-O3", "-Xcompiler",
+                   "-fPIC", "-Xptxas", "-v", "-c", str(d / src), "-o",
+                   str(obj)]
+            procs.setdefault(name, []).append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
     libs, reports = {}, {}
-    for name, (src, obj, proc) in procs.items():
-        out, _ = proc.communicate()
-        reports[name] = out
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}\n{out}")
+    for name, runs in procs.items():
+        objs = []
+        for src, obj, proc in runs:
+            out, _ = proc.communicate()
+            reports[name] = reports.get(name, "") + out
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for variant {name}\n{out}")
+            objs.append(obj)
+        stems = {o.stem for o in objs}
         others = [o for o in sorted(build_dir.glob("*.o"))
-                  if o.stem != Path(src).stem]
-        lib = obj.parent / "libvariant.so"
-        subprocess.run([nvcc, _build.ARCH, "-shared", "-o", str(lib), str(obj)]
-                       + [str(o) for o in others], check=True)
+                  if o.stem not in stems]
+        lib = objs[0].parent / "libvariant.so"
+        subprocess.run([nvcc, _build.ARCH, "-shared", "-o", str(lib)]
+                       + [str(o) for o in objs + others], check=True)
         cdll = ctypes.CDLL(str(lib))
         for entry, argtypes in _build._SIGNATURES.items():
             fn = getattr(cdll, entry)
@@ -99,8 +119,8 @@ def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", nargs="+", choices=("mont", "ladder"),
-                    default=["mont", "ladder"])
+    ap.add_argument("--kernels", nargs="+", choices=("mont", "ladder", "pow"),
+                    default=["mont", "ladder", "pow"])
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "kernel_variants.json"))
     args = ap.parse_args()
@@ -128,25 +148,37 @@ def main() -> None:
     shipped = _build.library()
     log(f"built the library in {_build.BUILD_INFO['seconds']:.1f} s")
     for r in cs.ptxas_table(_build.BUILD_INFO["ptxas"]):
-        if r["kernel"].startswith(("mont_", "ladder_loop")):
+        if r["kernel"].startswith(("mont_", "ladder_loop", "pow_loop",
+                                   "fp2_pow_loop")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     variants = {}
     if "ladder" in args.kernels:
         for b4, b6 in LADDER_VARIANTS:
-            variants[f"ladder b4={b4} b6={b6}"] = ("ladder_loop.cu", [(
-                LADDER_BOUNDS, "__launch_bounds__(32 * TcLanes<S>::G, "
+            variants[f"ladder b4={b4} b6={b6}"] = (["ladder_loop.cu"], [(
+                "ladder_loop.cu", LADDER_BOUNDS,
+                "__launch_bounds__(32 * TcLanes<S>::G, "
                 f"S == 4 ? {b4} : S == 6 ? {b6} : 1)")])
     if "mont" in args.kernels:
         cases = sorted(((int(m.group(1)), m.group(0)) for m in
                         MONT_CASE.finditer((_build.CSRC / "mont_mul.cu")
                                            .read_text())))
         for gs in MONT_VARIANTS:
-            reps = [(text, f"case {L}: return bgn_mont_words_launch<"
-                     f"{L // 2}, {g}>") for (L, text), g in zip(cases, gs)]
-            variants["mont G=" + ",".join(map(str, gs))] = ("mont_mul.cu",
+            reps = [("mont_mul.cu", text, f"case {L}: return "
+                     f"bgn_mont_words_launch<{L // 2}, {g}>")
+                    for (L, text), g in zip(cases, gs)]
+            variants["mont G=" + ",".join(map(str, gs))] = (["mont_mul.cu"],
                                                             reps)
+    if "pow" in args.kernels:
+        tc_src = (_build.CSRC / "rns_tc.cuh").read_text()
+        for b4, b6 in POW_BLOCKS:
+            variants[f"pow b4={b4} b6={b6}"] = (POW_SOURCES, [
+                ("rns_tc.cuh", m.group(0), f"{m.group(1)}S == 4 ? {b4} : "
+                 f"S == 6 ? {b6} : 1;")
+                for m in re.finditer(r"(struct Tc(?:Fp2)?Pow \{\n  static "
+                                     r"constexpr int min_blocks = )[^;]*;",
+                                     tc_src)])
     libs, reports = compile_variants(_build.BUILD_DIR, _build.CSRC,
                                      _build._nvcc(), variants)
     log(f"built {len(libs)} variants")
@@ -203,6 +235,36 @@ def main() -> None:
             jobs.append((f"mont_mul L={L} N={n} local-memory loop",
                          ["shipped"], loop, want))
 
+    if "pow" in args.kernels:          # random residues, random primes
+        for bits in (528, 1056, 2080):
+            p = hm.gen_prime(bits, rng=rng)
+            rns = rn.make_rns_ctx(p, device=dev)
+            k, S = rns.k, cuda_rns.slots_for(rns.k)
+            pm2 = [int(b) for b in bin(p - 2)[2:]][:64 if S == 12 else None]
+            digits = [rng.choice((-1, 0, 0, 1)) for _ in range(64)]
+            for n in POW_N:
+                xs = [rn.to_rns_mont(rns, torch.as_tensor(lb.ints_to_limbs(
+                    [rng.randrange(p) for _ in range(n)], rns.L),
+                    device=dev)).v.contiguous() for _ in range(2)]
+                for kern, fn, plain, tag in (
+                        ("pow_loop",
+                         lambda r=rns, x=xs[0], e=pm2: cuda_rns.pow_loop(
+                             r, x, e),
+                         cuda_rns.pow_loop_plain(rns, xs[0], pm2),
+                         f"bits={len(pm2)}"),
+                        ("fp2_pow_loop",
+                         lambda r=rns, x=xs, d=digits:
+                             cuda_rns.fp2_pow_loop(r, *x, d),
+                         cuda_rns.fp2_pow_loop_plain(rns, *xs, digits),
+                         "digits=64")):
+                    names = ["shipped"]
+                    if n == (8192 if kern == "pow_loop" else 2048) \
+                            and S != 12:
+                        names += [v for v in libs if v.startswith("pow")]
+                    jobs.append((f"{kern} k={k} N={n} {tag}", names, fn,
+                                 plain))
+        log("power inputs and plain outputs ready")
+
     real_library = _build.library
     times = {}
     try:
@@ -215,7 +277,7 @@ def main() -> None:
                     w = want if isinstance(want, tuple) else (want,)
                     if not all(torch.equal(g, v) for g, v in zip(got, w)):
                         raise AssertionError(f"{label} [{name}] != plain")
-                    ms = cs.cuda_ms(fn, torch)
+                    ms = cs.cuda_ms(fn, torch, budget_ms=300.0)
                     times.setdefault(label, {}).setdefault(name, []).append(ms)
             log(f"turn {turn} timed")
     finally:

@@ -1,0 +1,99 @@
+"""csrc/pow_loop.cu and csrc/fp2_pow_loop.cu on the tensor-core block
+product, held on the CPU without JAX: whole pow_loop_plain and
+fp2_pow_loop_plain chains with every product's extension sums routed
+through test_torch_tc_ext.py's integer emulation of rns_tc.cuh's block
+product, over n lanes padded to whole blocks of G with the zero inputs
+the kernels give lanes past n (n = 1: the lone Fermat inversion of
+normalize_rns and mont_inv_rns, one live lane of eight; n = 13: a short
+last block), equal to the plain chains.  The moduli are
+test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and 186 (S = 12).
+"""
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import test_torch_tc_ext as tce
+from bgn_torch.fieldcore import limbs as lb
+from bgn_torch.fieldcore import rns as trn
+from bgn_torch.ops import cuda_rns
+
+G = 8                                        # rns_tc.cuh TcLanes<S>::G
+
+
+@pytest.fixture(scope="module", params=sorted(tce.WIDTHS),
+                ids=lambda b: f"{b}b")
+def ctx(request):
+    return tce._ctx(request.param)
+
+
+def _tc_sums(ctx, mat, q):
+    """The tensor-core block product (test_torch_tc_ext.py's emulation of
+    rns_tc.cuh bgn_tc_extend) over q [k, N], N a multiple of G."""
+    assert q.shape[1] % G == 0
+    return np.concatenate([tce._block_extension(ctx, mat, q[:, b:b + G], G).T
+                           for b in range(0, q.shape[1], G)],
+                          axis=1).astype(np.int64)
+
+
+def _routed_ext_dot(ctx, sums_of):
+    """A stand-in for fieldcore/rns.py _ext_dot whose extension sums come
+    from sums_of(mat, q) (q: the source residues of the product, [k, N]):
+    they must equal the plain sums bit for bit, and they are returned
+    recombined as O = (S // 4096, S // 64 % 64, S % 64), so the product
+    goes on from the emulated sums.  The alpha row is the plain one."""
+    real, k = trn._ext_dot, ctx.k
+
+    def ext_dot(W, x):
+        mat = 0 if W is ctx.w1 else 1
+        O, Sa = real(W, x)
+        q = (x[:k] * 64 + x[k:]).numpy().astype(np.int64)
+        assert q.min() >= 0 and q.max() < 4096
+        S = sums_of(mat, q)
+        Oi = O.numpy().astype(np.int64)
+        np.testing.assert_array_equal(
+            S, Oi[:k] * 4096 + Oi[k:2 * k] * 64 + Oi[2 * k:])
+        return torch.tensor(np.concatenate([S // 4096, S // 64 % 64,
+                                            S % 64]),
+                            dtype=torch.float32), Sa
+    return ext_dot
+
+
+def _values(ctx, n, seed):
+    """Residues [2k, n] of n seeded random values below p."""
+    p = lb.limbs_to_ints(ctx.p_limbs.reshape(-1, 1))[0]
+    rng = random.Random(seed)
+    return trn.limbs_to_rns(ctx, torch.as_tensor(lb.ints_to_limbs(
+        [rng.randrange(p) for _ in range(n)], ctx.L)))
+
+
+def _chains(ctx):
+    """(name, plain chain on lanes, its inputs [2k, n] each): a short
+    pow_loop chain (bits 1, 0, 1, 1, 0, 1) and fp2_pow_loop chain (digits
+    1, -1, 0, 1: a square per digit, a product with x or conj(x) on the
+    nonzero ones)."""
+    return (("pow_loop", lambda *a: (cuda_rns.pow_loop_plain(
+                ctx, *a, [1, 0, 1, 1, 0, 1]),), 1),
+            ("fp2_pow_loop", lambda *a: cuda_rns.fp2_pow_loop_plain(
+                ctx, *a, [1, -1, 0, 1]), 2))
+
+
+@pytest.mark.parametrize("n", [1, 13])
+@pytest.mark.parametrize("kernel", ["pow_loop", "fp2_pow_loop"])
+def test_chains_on_the_block_product(ctx, kernel, n, monkeypatch):
+    """n lanes padded to whole blocks of G = 8 with the zero inputs the
+    kernel gives lanes past n (X = 0, and for fp2_pow_loop conj(x)'s
+    10p - 0; the accumulators start at one), every product's extensions
+    on the emulated block product; the padded chains' n lanes equal the
+    unpadded plain chains bit for bit."""
+    name, chain, nin = next(c for c in _chains(ctx) if c[0] == kernel)
+    ins = [_values(ctx, n, 2 * ctx.k + i) for i in range(nin)]
+    want = chain(*ins)
+    width = -(-n // G) * G
+    pad = [torch.cat([v, v.new_zeros(v.shape[0], width - n)], dim=1)
+           for v in ins]
+    monkeypatch.setattr(trn, "_ext_dot", _routed_ext_dot(
+        ctx, lambda mat, q: _tc_sums(ctx, mat, q)))
+    got = chain(*pad)
+    assert all(torch.equal(g[:, :n], w) for g, w in zip(got, want))
