@@ -54,10 +54,9 @@ _SIGNATURES = {
     "bgn_pt_add": [_P, _I, _I] + [_P] * 8 + [_I, _P],
     "bgn_pow_step": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
-    # the digit-domain Miller steps: (inputs, outputs, p, pinv, L, n,
-    # threads per block)
-    "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _I, _I, _P],
-    "bgn_miller_add_digits": [_P] * 15 + [_I, _I, _I, _I, _P],
+    # the digit-domain Miller steps: (inputs, outputs, p, L, n)
+    "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _P],
+    "bgn_miller_add_digits": [_P] * 15 + [_I, _I, _P],
     # no launch: the Miller kernel's shared memory per block at (k, slots)
     "bgn_miller_loop_smem": [_I, _I],
 }

@@ -12,54 +12,44 @@
 // writes the five outputs as canonical digits, so it equals the JAX kernel
 // and ops/cuda_pairing.py dbl_step_plain bit for bit.
 //
-// Design: one thread per lane.  The digits are read once and paired into
-// 16-bit limbs (exact: every digit < 256); the state lives as limbs in
-// local memory, 14 field elements of LC limbs plus the CIOS accumulator
-// (mont.cuh); p sits in shared memory.  The kernel is a template on the
-// limb cap LC (40 for 512-bit keys, L = 34; 64 for the widest L the fused
-// dispatch sends), so the 512-bit path does not pay for L = 64 in local
-// memory.  The TPU kernel's fp32 digit CIOS, its [8, 128] tiling and its
-// padding of the batch to 1024 lanes are not carried over.
+// Design (digits.cuh, mont_words.cuh): the digits are read once, four rows
+// to a 32-bit word, and every product is CIOS on 32-bit words.  The
+// kernel is a template on the field: at L = 34 (512-bit keys) and L = 64
+// (the widest L the fused dispatch sends) the register form
+// bgn_miller_dbl_digits_kernel<W, G>, fully unrolled, each live value of
+// the lane held as S = ceil((W + 1) / G) words in each of G threads'
+// registers; at every other L <= 64, odd L included,
+// bgn_miller_dbl_digits_loop_kernel, one thread per lane with its values
+// in local memory.  G and the threads per block come from the sweep of
+// scripts/kernel_variants.py --kernels digits (PERF.md §6): G = 8 at
+// L = 34 and 32 at L = 64 (more threads per lane shorten each lane's
+// dependent chains, which set the time; fewer spilled or waited), 128
+// threads per block (64 and 256 were within the noise).  The TPU
+// kernel's fp32 digit CIOS, its [8, 128] tiling and its padding of the
+// batch to 1024 lanes are not carried over.
 //
-// Bound on the H100: the 21 products are 21 * L^2 32-bit multiply-adds
-// per lane, the least a CIOS on L/2 32-bit limbs needs for the same R
-// (2 (L/2)^2 wide products, each a low and a high multiply-add; at L = 34,
-// n = 8192: 199 M, 11.9 us at 16.7e12 per s); the bytes (12 arrays of 2L
-// floats per lane) take 8 us.  The kernel runs far
-// above both: every limb of every product goes through local memory.
+// Bound on the H100: the 21 products are 21 * 4 (L/2)^2 32-bit
+// multiply-adds per lane (2 (L/2)^2 wide products, a low and a high
+// multiply-add each; at L = 34, n = 8192: 199 M, 11.9 us at 16.7e12 per
+// s); the bytes (12 arrays of 2L floats per lane, 26.7 MB) take 8 us.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mont.cuh"
+#include "digits.cuh"
 
-#define BGN_DIGITS_MAX_THREADS 128
-
-template <int LC>
-__global__ void __launch_bounds__(BGN_DIGITS_MAX_THREADS)
-bgn_miller_dbl_digits_kernel(
-    const float* __restrict__ vx, const float* __restrict__ vy,
-    const float* __restrict__ vz, const float* __restrict__ fr,
-    const float* __restrict__ fi, const float* __restrict__ bx,
-    const float* __restrict__ by, float* __restrict__ ox,
-    float* __restrict__ oy, float* __restrict__ oz, float* __restrict__ ofr,
-    float* __restrict__ ofi, const int64_t* __restrict__ p, unsigned pinv,
-    int L, int n) {
-  __shared__ unsigned ps[LC];
-  for (int j = threadIdx.x; j < L; j += blockDim.x) ps[j] = (unsigned)p[j];
-  __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  unsigned T[2 * LC + 1];
-  const BgnField F{ps, pinv, L, T};
-  unsigned X[LC], Y[LC], Z[LC], FR[LC], FI[LC], XB[LC], YB[LC];
-  unsigned t0[LC], t1[LC], t2[LC], t3[LC], t4[LC], t5[LC], t6[LC];
-  bgn_load_digits(X, vx, L, n, lane);
-  bgn_load_digits(Y, vy, L, n, lane);
-  bgn_load_digits(Z, vz, L, n, lane);
-  bgn_load_digits(FR, fr, L, n, lane);
-  bgn_load_digits(FI, fi, L, n, lane);
-  bgn_load_digits(XB, bx, L, n, lane);
-  bgn_load_digits(YB, by, L, n, lane);
+// The step on one lane; F: BgnWordField<W, G> or BgnLoopField.  Each
+// statement is one field op (F.load, F.mul, F.add, F.sub, F.store), in
+// the order of the TPU kernel; tests/test_torch_digits_words.py reads
+// them from here and runs them on its emulation of the field.
+template <class Field>
+static __device__ __forceinline__ void bgn_miller_dbl_body(
+    const Field& F, const float* vx, const float* vy, const float* vz,
+    const float* fr, const float* fi, const float* bx, const float* by,
+    float* ox, float* oy, float* oz, float* ofr, float* ofi) {
+  typename Field::Elem X, Y, Z, FR, FI, XB, YB, t0, t1, t2, t3, t4, t5, t6;
+  F.load(X, vx);
+  F.load(Y, vy);
+  F.load(Z, vz);
 
   // doubling; the temporaries are reused as each value dies
   F.mul(t0, X, X);                     // XX
@@ -86,6 +76,8 @@ bgn_miller_dbl_digits_kernel(
   F.mul(t0, Y, Z);
   F.add(t0, t0, t0);                   // Z3 = 2 Y Z
   // tangent line at phi(B): re = M (ZZZ xb + X Z) - Z3 Y, im = Z3 ZZZ yb
+  F.load(XB, bx);
+  F.load(YB, by);
   F.mul(t4, t2, XB);
   F.mul(t6, X, Z);
   F.add(t4, t4, t6);
@@ -94,11 +86,13 @@ bgn_miller_dbl_digits_kernel(
   F.sub(t4, t4, t6);                   // l_re
   F.mul(t6, t0, t2);
   F.mul(t6, t6, YB);                   // l_im
-  bgn_store_digits(ox, t1, L, n, lane);
-  bgn_store_digits(oy, t3, L, n, lane);
-  bgn_store_digits(oz, t0, L, n, lane);
+  F.store(ox, t1);
+  F.store(oy, t3);
+  F.store(oz, t0);
 
   // f <- f^2 * line: the square (a + b)(a - b) + 2ab i, then Karatsuba
+  F.load(FR, fr);
+  F.load(FI, fi);
   F.add(t2, FR, FI);
   F.sub(t5, FR, FI);
   F.mul(t2, t2, t5);                   // sq_re
@@ -112,34 +106,60 @@ bgn_miller_dbl_digits_kernel(
   F.sub(FR, X, Y);                     // f_re = m0 - m1
   F.sub(FI, Z, X);
   F.sub(FI, FI, Y);                    // f_im = m2 - m0 - m1
-  bgn_store_digits(ofr, FR, L, n, lane);
-  bgn_store_digits(ofi, FI, L, n, lane);
+  F.store(ofr, FR);
+  F.store(ofi, FI);
 }
 
-template <int LC>
-static int dbl_launch(const float* vx, const float* vy, const float* vz,
-                      const float* fr, const float* fi, const float* bx,
-                      const float* by, float* ox, float* oy, float* oz,
-                      float* ofr, float* ofi, const int64_t* p, int pinv,
-                      int L, int n, int threads, cudaStream_t stream) {
-  const int grid = (n + threads - 1) / threads;
-  bgn_miller_dbl_digits_kernel<LC><<<grid, threads, 0, stream>>>(
-      vx, vy, vz, fr, fi, bx, by, ox, oy, oz, ofr, ofi, p, (unsigned)pinv,
-      L, n);
+#define BGN_DBL_ARGS                                                         \
+  const float *__restrict__ vx, const float *__restrict__ vy,                \
+      const float *__restrict__ vz, const float *__restrict__ fr,            \
+      const float *__restrict__ fi, const float *__restrict__ bx,            \
+      const float *__restrict__ by, float *__restrict__ ox,                  \
+      float *__restrict__ oy, float *__restrict__ oz,                        \
+      float *__restrict__ ofr, float *__restrict__ ofi,                      \
+      const int64_t *__restrict__ p
+#define BGN_DBL_PASS vx, vy, vz, fr, fi, bx, by, ox, oy, oz, ofr, ofi
+
+template <int W, int G>
+__global__ void __launch_bounds__(BGN_DIGITS_THREADS)
+bgn_miller_dbl_digits_kernel(BGN_DBL_ARGS, int n) {
+  const BgnWordField<W, G> F(p, n);
+  bgn_miller_dbl_body(F, BGN_DBL_PASS);
+}
+
+__global__ void __launch_bounds__(BGN_DIGITS_THREADS)
+bgn_miller_dbl_digits_loop_kernel(BGN_DBL_ARGS, int L, int n) {
+  __shared__ unsigned ps[BGN_DIGITS_SMAX];
+  bgn_load_p_shared(ps, p, L);
+  const int lane = blockIdx.x * BGN_DIGITS_THREADS + threadIdx.x;
+  if (lane >= n) return;
+  bgn_miller_dbl_body(BgnLoopField(ps, L, n, lane), BGN_DBL_PASS);
+}
+
+template <int W, int G>
+static int dbl_launch(BGN_DBL_ARGS, int n, cudaStream_t stream) {
+  const long long threads = (long long)n * G;
+  const int grid =
+      (int)((threads + BGN_DIGITS_THREADS - 1) / BGN_DIGITS_THREADS);
+  bgn_miller_dbl_digits_kernel<W, G><<<grid, BGN_DIGITS_THREADS, 0, stream>>>(
+      BGN_DBL_PASS, p, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int bgn_miller_dbl_digits(
-    const float* vx, const float* vy, const float* vz, const float* fr,
-    const float* fi, const float* bx, const float* by, float* ox, float* oy,
-    float* oz, float* ofr, float* ofi, const int64_t* p, int pinv, int L,
-    int n, int threads, cudaStream_t stream) {
-  if (L < 1 || L > 64 || n < 1 || threads < 32
-      || threads > BGN_DIGITS_MAX_THREADS || threads % 32)
+// The kernel for L: the register form at L = 34 and 64 (G threads per
+// lane), the loop form at every other L.
+extern "C" int bgn_miller_dbl_digits(BGN_DBL_ARGS, int L, int n,
+                                     cudaStream_t stream) {
+  if (L < 1 || L > BGN_DIGITS_LMAX || n < 1)
     return (int)cudaErrorInvalidValue;
-  if (L <= 40)
-    return dbl_launch<40>(vx, vy, vz, fr, fi, bx, by, ox, oy, oz, ofr, ofi,
-                          p, pinv, L, n, threads, stream);
-  return dbl_launch<64>(vx, vy, vz, fr, fi, bx, by, ox, oy, oz, ofr, ofi, p,
-                        pinv, L, n, threads, stream);
+  switch (L) {
+    case 34: return dbl_launch<17, 8>(BGN_DBL_PASS, p, n, stream);
+    case 64: return dbl_launch<32, 32>(BGN_DBL_PASS, p, n, stream);
+    default: {
+      const int grid = (n + BGN_DIGITS_THREADS - 1) / BGN_DIGITS_THREADS;
+      bgn_miller_dbl_digits_loop_kernel<<<grid, BGN_DIGITS_THREADS, 0,
+                                          stream>>>(BGN_DBL_PASS, p, L, n);
+      return (int)cudaGetLastError();
+    }
+  }
 }

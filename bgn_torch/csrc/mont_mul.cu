@@ -15,31 +15,18 @@
 // copy, and neighbouring lanes read neighbouring addresses.
 //
 // The limbs are packed in pairs into W = ceil(L/2) 32-bit words on load,
-// and CIOS runs on 32 x 32 -> 64-bit products: a quarter of the products
-// of 16-bit limbs, with no mask or shift per product.  -p^-1 mod 2^32 comes
-// from Newton steps on p's low word.  Per word step i: T += a_i * b (one
-// carry chain), m = T_0 * (-p^-1) mod 2^32, T += m * p (a second chain),
-// T >>= 32; T < 2p throughout (each step adds less than 2^32 * 2p before
-// the shift), and one conditional subtraction of p ends it.
+// and CIOS runs on 32 x 32 -> 64-bit products (mont_words.cuh, shared with
+// the two digit-domain Miller step kernels): a quarter of the products of
+// 16-bit limbs, with no mask or shift per product.
 //
 //  - bgn_mont_words_kernel<W, G>: the widths of the keys, L = 2W = 34, 66,
-//    130, 258 (512- to 4096-bit keys), fully unrolled, so a lane's words
-//    live in registers.  G threads share a lane, thread t holding words
-//    t*S .. t*S + S - 1 of b, p and T, S = ceil((W + 1) / G); a_i comes
-//    from the thread that loaded it by a
-//    shuffle, m from thread 0.  A thread's two chains end in a carry word
-//    E of position (t + 1) S, which after the shift is its own top word;
-//    the word that shifts in from thread t + 1 plus E overflows by at most
-//    2, and that carry P goes to thread t + 1 by a shuffle and starts its
-//    next chain.  After the last step the pending carries are rippled
-//    (at most G - 1 rounds), and the borrow of T - p crosses the threads
-//    by G - 1 rounds of bin' = bin ? (slice <= p's) : (slice < p's).
-//  - bgn_mont_loop_kernel: every other L, odd L included (R = 2^(16L) is
-//    then not a power of 2^32: W - 1 word steps and a last half step on
-//    16 bits, m = T_0 * (-p^-1) mod 2^16, T >>= 16).  One thread per
-//    lane, the same chains with S = W + 1 over runtime W, b and T in local
-//    memory, p in shared memory.  bgn_mont_mul_loop runs it at any L, so
-//    chip_smoke.py can time it beside the register kernels.
+//    130, 258 (512- to 4096-bit keys), the register form of
+//    mont_words.cuh: fully unrolled, a lane's words in registers, G
+//    threads per lane.
+//  - bgn_mont_loop_kernel: every other L, odd L included, the loop form of
+//    mont_words.cuh (one thread per lane, b and T in local memory, p in
+//    shared memory).  bgn_mont_mul_loop runs it at any L, so chip_smoke.py
+//    can time it beside the register kernels.
 // tests/test_torch_mont_words.py emulates both kernels word for word.
 //
 // Bound on the H100: at L = 34 and n = 8192 the bytes (3 * 8 * L per
@@ -55,50 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mont_words.cuh"
+
 #define BGN_MONT_LMAX 264              // 4096-bit keys have L = 258
 #define BGN_MONT_WMAX 132              // words of BGN_MONT_LMAX limbs
 #define BGN_MONT_THREADS 32            // threads per block
-#define BGN_MONT_FULL 0xffffffffu
-
-typedef unsigned long long bgn_u64;
-
-// 32-bit word w of a lane's operand: limbs 2w and 2w + 1 (0 past L)
-struct BgnWords {
-  const int64_t* v;
-  long long stride;
-  int L;
-  __device__ __forceinline__ unsigned operator()(int w) const {
-    const unsigned lo = (unsigned)v[(long long)(2 * w) * stride];
-    const unsigned hi =
-        2 * w + 1 < L ? (unsigned)v[(long long)(2 * w + 1) * stride] : 0u;
-    return lo | (hi << 16);
-  }
-};
-
-// -p^-1 mod 2^32 for odd p0: Newton steps x <- x (2 - p0 x) double the
-// correct low bits of p0^-1 (3, 6, 12, 24, 48)
-static __device__ __forceinline__ unsigned bgn_neg_inv32(unsigned p0) {
-  unsigned x = p0;
-#pragma unroll
-  for (int r = 0; r < 4; r++) x *= 2u - p0 * x;
-  return 0u - x;
-}
-
-// T[0..S) += x * y[0..S) + c; returns the carry word out
-template <int S>
-static __device__ __forceinline__ unsigned bgn_mad_chain(unsigned* T,
-                                                         unsigned x,
-                                                         const unsigned* y,
-                                                         unsigned c) {
-  bgn_u64 carry = c;
-#pragma unroll
-  for (int j = 0; j < S; j++) {
-    const bgn_u64 v = (bgn_u64)x * y[j] + T[j] + carry;
-    T[j] = (unsigned)v;
-    carry = v >> 32;
-  }
-  return (unsigned)carry;
-}
 
 template <int W, int G>
 __global__ void __launch_bounds__(BGN_MONT_THREADS)
@@ -122,75 +70,9 @@ bgn_mont_words_kernel(const int64_t* __restrict__ a, long long a_sl,
     av[j] = w < W ? aw(w) : 0u;
     bv[j] = w < W ? bw(w) : 0u;
     pv[j] = w < W ? pw(w) : 0u;
-    T[j] = 0u;
   }
   const unsigned pinv = bgn_neg_inv32(pw(0));
-  unsigned P = 0;                      // carry into word 0 from below
-#pragma unroll
-  for (int i = 0; i < W; i++) {
-    unsigned ai = av[i % S];
-    if constexpr (G > 1) ai = __shfl_sync(BGN_MONT_FULL, ai, i / S, G);
-    const unsigned cA = bgn_mad_chain<S>(T, ai, bv, P);
-    unsigned m = T[0] * pinv;
-    if constexpr (G > 1) m = __shfl_sync(BGN_MONT_FULL, m, 0, G);
-    const unsigned cB = bgn_mad_chain<S>(T, m, pv, 0u);
-    unsigned up = 0;                   // thread t + 1's word 0
-    if constexpr (G > 1) {
-      up = __shfl_down_sync(BGN_MONT_FULL, T[0], 1, G);
-      if (t == G - 1) up = 0;
-    }
-#pragma unroll
-    for (int j = 0; j + 1 < S; j++) T[j] = T[j + 1];
-    const bgn_u64 y = (bgn_u64)up + cA + cB;
-    T[S - 1] = (unsigned)y;
-    if constexpr (G > 1) {
-      P = __shfl_up_sync(BGN_MONT_FULL, (unsigned)(y >> 32), 1, G);
-      if (t == 0) P = 0;
-    }
-  }
-  if constexpr (G > 1) {               // ripple the pending carries
-#pragma unroll 1
-    for (int r = 0; r < G; r++) {
-      bgn_u64 carry = P;
-#pragma unroll
-      for (int j = 0; j < S; j++) {
-        const bgn_u64 v = (bgn_u64)T[j] + carry;
-        T[j] = (unsigned)v;
-        carry = v >> 32;
-      }
-      P = __shfl_up_sync(BGN_MONT_FULL, (unsigned)carry, 1, G);
-      if (t == 0) P = 0;
-      if (!__any_sync(BGN_MONT_FULL, P)) break;
-    }
-  }
-  // T < 2p: subtract p if T >= p.  b0 / b1: this slice's borrow out for
-  // a borrow in of 0 / 1 (b1 = slice <= p's slice)
-  int b0 = 0, eq = 1;
-#pragma unroll
-  for (int j = 0; j < S; j++) {
-    const long long s = (long long)T[j] - pv[j] - b0;
-    b0 = s < 0;
-    eq &= (unsigned)s == 0u;
-  }
-  const int b1 = b0 | eq;
-  int bin = 0;
-  if constexpr (G > 1) {
-#pragma unroll
-    for (int r = 0; r + 1 < G; r++) {
-      bin = __shfl_up_sync(BGN_MONT_FULL, bin ? b1 : b0, 1, G);
-      if (t == 0) bin = 0;
-    }
-  }
-  int ge = !(bin ? b1 : b0);           // T >= p: the top slice's borrow
-  if constexpr (G > 1) ge = __shfl_sync(BGN_MONT_FULL, ge, G - 1, G);
-  if (ge) {
-#pragma unroll
-    for (int j = 0; j < S; j++) {
-      const long long s = (long long)T[j] - pv[j] - bin;
-      bin = s < 0;
-      T[j] = (unsigned)s;
-    }
-  }
+  bgn_mont_words<W, G, S>(T, av, bv, pv, pinv, t);
   if (!live) return;
 #pragma unroll
   for (int j = 0; j < S; j++) {
@@ -200,20 +82,6 @@ bgn_mont_words_kernel(const int64_t* __restrict__ a, long long a_sl,
       out[(size_t)(2 * w + 1) * n + lane] = (int64_t)(T[j] >> 16);
     }
   }
-}
-
-// T[0..S) += x * y[0..S) over a runtime S; returns the carry word out
-static __device__ __forceinline__ unsigned bgn_mad_loop(unsigned* T,
-                                                        unsigned x,
-                                                        const unsigned* y,
-                                                        int S) {
-  bgn_u64 carry = 0;
-  for (int j = 0; j < S; j++) {
-    const bgn_u64 v = (bgn_u64)x * y[j] + T[j] + carry;
-    T[j] = (unsigned)v;
-    carry = v >> 32;
-  }
-  return (unsigned)carry;
 }
 
 __global__ void __launch_bounds__(BGN_MONT_THREADS)
@@ -236,27 +104,9 @@ bgn_mont_loop_kernel(const int64_t* __restrict__ a, long long a_sl,
     bv[j] = j < W ? bw(j) : 0u;
     T[j] = 0u;
   }
-  for (int i = 0; i < L / 2; i++) {    // full word steps
-    const unsigned cA = bgn_mad_loop(T, aw(i), bv, S);
-    const unsigned cB = bgn_mad_loop(T, T[0] * pinv, ps, S);
-    for (int j = 0; j + 1 < S; j++) T[j] = T[j + 1];
-    T[S - 1] = cA + cB;                // < 2: T < 2^32 * 2p before the shift
-  }
-  if (L & 1) {                         // the half step on limb L - 1
-    const unsigned cA =
-        bgn_mad_loop(T, (unsigned)aw.v[(long long)(L - 1) * a_sl], bv, S);
-    const unsigned cB =
-        bgn_mad_loop(T, (T[0] * pinv) & 0xFFFFu, ps, S);
-    for (int j = 0; j + 1 < S; j++) T[j] = (T[j] >> 16) | (T[j + 1] << 16);
-    T[S - 1] = (T[S - 1] >> 16) | ((cA + cB) << 16);
-  }
-  int borrow = 0;                      // T < 2p: subtract p if T >= p
-  for (int j = 0; j < S; j++) {
-    const long long s = (long long)T[j] - ps[j] - borrow;
-    borrow = s < 0;
-    bv[j] = (unsigned)s;
-  }
-  const unsigned* r = borrow ? T : bv;
+  bgn_mont_loop_steps(T, aw, bv, ps, pinv, L, S);
+  // T < 2p: subtract p if T >= p
+  const unsigned* r = bgn_loop_sub_p(T, ps, S, bv) ? T : bv;
   for (int l = 0; l < L; l++) {
     const unsigned v = r[l >> 1];
     out[(size_t)l * n + lane] = (int64_t)((l & 1 ? v >> 16 : v) & 0xFFFFu);

@@ -23,8 +23,8 @@ bit.  A wrapper runs the plain version for a CPU tensor and launches the
 kernel for a CUDA tensor (or raises); it counts its launches in
 `launches`.  The plain versions convert the digits to int64 limbs, run
 the step on limbs through cuda_mont.mont_mul_plain and convert back; the
-kernels do the same on 16-bit limbs in one thread per lane.  The step
-formulas on limbs are ops/miller_lines.py's.
+kernels run it on 32-bit words (csrc/digits.cuh, csrc/mont_words.cuh).
+The step formulas on limbs are ops/miller_lines.py's.
 """
 
 from __future__ import annotations
@@ -37,10 +37,7 @@ from .._build import is_cpu, launch, ptr
 from ..fieldcore import cuda_mont
 from . import miller_lines as ml
 
-LMAX = 64                  # csrc/miller_*_digits.cu: the widest limb cap
-# threads per block of both kernels (a multiple of 32, at most 128): at
-# B = 8192, 64 gives 128 blocks for the card's 132 SMs, 128 only 64
-THREADS = 64
+LMAX = 64                  # csrc/digits.cuh: the widest L the kernels take
 
 
 def to_digits(x: torch.Tensor) -> torch.Tensor:
@@ -86,8 +83,7 @@ def add_step_plain(ctx, V, f, A, Bq):
 
 
 def _launch_step(wrapper, entry: str, ctx, ins):
-    """Check the digit arrays, launch (inputs, outputs, p, pinv, L, n,
-    threads per block)."""
+    """Check the digit arrays, launch (inputs, outputs, p, L, n)."""
     L = ctx.L
     n = ins[0].shape[-1]
     for t in ins:
@@ -103,7 +99,7 @@ def _launch_step(wrapper, entry: str, ctx, ins):
     outs = [torch.empty_like(ins[0]) for _ in range(5)]
     if n:
         launch(entry, *(ptr(t) for t in ins), *(ptr(t) for t in outs),
-               ptr(ctx.p), ctx.pinv, L, n, THREADS)
+               ptr(ctx.p), L, n)
         wrapper.launches += 1
     return tuple(outs[:3]), tuple(outs[3:])
 

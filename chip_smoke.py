@@ -13,7 +13,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (k <= 192, the extension matrices in device memory), mont_mul (the
      register kernels for W = 17, 33, 65 and 129 words, G threads per
      lane, and the local-memory loop for any other L) and the two
-     digit-domain Miller step kernels (limb caps 40 and 64); the count of
+     digit-domain Miller step kernels (the register form for W = 17 and
+     32 words, G threads per lane, and the loop form for any other L);
+     the count of
      tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
      pow_loop and fp2_pow_loop kernels (blocks of G lanes, base
      extensions on the tensor cores: csrc/rns_tc.cuh) for each S, which
@@ -36,10 +38,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
      of step-kernel launches (the per-step configuration's host loop)
      against each loop kernel's output, bit for bit; the digit-domain
      Miller steps (miller_dbl_digits, miller_add_digits) at L = 34 on the
-     512-bit key's Miller state at N = batch, and at L = 64 (the widest
-     the fused dispatch sends, 2L + 1 = 129) at N = 512 over random
-     canonical digits modulo a 1000-bit prime, each also timed at 128
-     threads per block;
+     512-bit key's Miller state at N = batch, batch - 1 and 1, and at
+     L = 64 (the widest the fused dispatch sends, 2L + 1 = 129) at N = 512
+     over random canonical digits modulo a 1000-bit prime (the register
+     form), and in the loop form at L = 35 (a 540-bit prime) and L = 6 (a
+     64-bit prime) at N = 512;
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -298,6 +301,7 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     log("  launches: " + str({name: wfn.launches
                               for name, wfn in wrappers.items()
                               if wfn.launches}))
+    return wall, busy, by_name
 
 
 def ptxas_table(report: str) -> list:
@@ -425,15 +429,17 @@ def main() -> None:
     _build.library()
     log(f"build: {time.time() - t0:.1f} s (nvcc, {len(list(_build.CSRC.glob('*.cu')))} "
         "sources in parallel, each RNS kernel for S = 4, 6 and 12 slots, "
-        "each digit kernel for limb caps 40 and 64, mont_mul for the "
-        "keys' word counts and its loop for any L)")
+        "each digit kernel for L = 34 and 64 and its loop for any other "
+        "L, mont_mul for the keys' word counts and its loop for any L)")
     ptxas = ptxas_table(_build.BUILD_INFO["ptxas"])
     for r in ptxas:
-        tag = {"mont_words": f"W={r['S']} G={r['G']}", "mont_loop": "any L",
-               "miller_dbl_digits": f"cap={r['S']}",
-               "miller_add_digits": f"cap={r['S']}"}.get(r["kernel"],
-                                                         f"S={r['S']}")
-        log(f"  ptxas {r['kernel']:<18s} {tag}: {r['registers']} "
+        words = f"W={r['S']} G={r['G']}"
+        tag = {"mont_words": words, "mont_loop": "any L",
+               "miller_dbl_digits": words, "miller_add_digits": words,
+               "miller_dbl_digits_loop": "any other L",
+               "miller_add_digits_loop": "any other L"}.get(
+                   r["kernel"], f"S={r['S']}")
+        log(f"  ptxas {r['kernel']:<22s} {tag}: {r['registers']} "
             f"registers, stack {r['stack']} B, spill stores "
             f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
     for k_ in (45, 90, 185):
@@ -822,9 +828,10 @@ def main() -> None:
     def digit_checks(seed):
         """The two digit-domain Miller steps against their plain versions:
         at L = 34 on the 512-bit key's Miller state (ciphertexts as A and
-        as B, V one doubling in) at B lanes, and at L = 64 over random
-        canonical digits modulo a 1000-bit prime at 512 lanes; each also
-        timed at 128 threads per block (the wrappers' default is 64)."""
+        as B, V one doubling in) at B, B - 1 and 1 lanes; at L = 64 over
+        random canonical digits modulo a 1000-bit prime at 512 lanes (the
+        register form); at L = 35 and L = 6 over random digits modulo a
+        540-bit and a 64-bit prime at 512 lanes (the loop form)."""
         drng = random.Random(seed)
         D = cuda_pairing.to_digits
         pts = pk.encrypt_with_randomness(
@@ -836,15 +843,19 @@ def main() -> None:
         V, f = cuda_pairing.dbl_step(ctx, (*A, one),
                                      (one, torch.zeros_like(one)), Bq)
         cases = [(ctx, V, f, A, Bq, 512)]
-        pm = hm.gen_prime(1000, rng=drng)
-        mctx = mg.make_mont_ctx(pm, L=64, device=dev)
+        for m in (B - 1, 1):          # ragged lane counts
+            cut = lambda xs, m=m: tuple(x[:, :m].contiguous() for x in xs)
+            cases.append((ctx, cut(V), cut(f), cut(A), cut(Bq), 512))
+        for bits, Lm in ((1000, 64), (540, 35), (64, 6)):
+            pm = hm.gen_prime(bits, rng=drng)
+            mctx = mg.make_mont_ctx(pm, L=Lm, device=dev)
 
-        def rnd(n=512):
-            return D(torch.as_tensor(lb.ints_to_limbs(
-                [drng.randrange(pm) for _ in range(n)], 64), device=dev))
+            def rnd(n=512):
+                return D(torch.as_tensor(lb.ints_to_limbs(
+                    [drng.randrange(pm) for _ in range(n)], Lm), device=dev))
 
-        cases.append((mctx, (rnd(), rnd(), rnd()), (rnd(), rnd()),
-                      (rnd(), rnd()), (rnd(), rnd()), 1000))
+            cases.append((mctx, (rnd(), rnd(), rnd()), (rnd(), rnd()),
+                          (rnd(), rnd()), (rnd(), rnd()), bits))
         for c, V, f, A, Bq, bits in cases:
             Lc, n = c.L, V[0].shape[1]
             for name, fn, plain, fargs, products, arrays in (
@@ -857,16 +868,10 @@ def main() -> None:
                       lambda fn=plain, c=c, a=fargs: sum(fn(c, *a), ()),
                       (0, 0, products * mont_mads(Lc) * n),
                       arrays * 2 * Lc * f32 * n, bits)
-                cuda_pairing.THREADS = 128
-                t128 = cuda_ms(lambda fn=fn, c=c, a=fargs: fn(c, *a), torch)
-                cuda_pairing.THREADS = 64
-                results[name][-1]["ms_128_threads"] = t128
-                log(f"  {name} L={Lc}, N={n} at 128 threads per block: "
-                    f"{t128:.3f} ms [{card}]")
 
     digit_checks(args.seed + 9)
     phase_done("3 (kernels, 512-bit; mont_mul at 512, 1024, 2048 bits; "
-               "digit steps at L = 34 and 64)")
+               "digit steps at L = 34, 64, 35 and 6)")
 
     # -- 4. the main path end to end ---------------------------------------
     def zero_counts():
@@ -1442,7 +1447,13 @@ def main() -> None:
                        lambda: pkr.mult(ar, br, rng=random.Random(13))),
                       ("L2 Add (re-randomized)",
                        lambda: pkr.add(prodr, prod2r, rng=random.Random(15)))):
-        profile_op(torch, label, fn, card, wrappers)
+        wall, busy, by_name = profile_op(torch, label, fn, card, wrappers)
+        if label == "limb-mode Mult":
+            digit_ms = sum(ms for nm, (ms, _) in by_name.items()
+                           if "_digits_" in nm)
+            log(f"  limb-mode Mult: the digit steps {digit_ms:.1f} ms of "
+                f"{busy:.1f} ms busy ({100 * digit_ms / busy:.1f} %), idle "
+                f"share {1 - busy / wall:.3f} [{card}]")
     phase_done("5 (profile)")
 
     kernels = []
@@ -1478,7 +1489,8 @@ def main() -> None:
             kernels[-1]["sass_imma"] = imma[name]
         kernels[-1]["ptxas"] = [
             r for r in ptxas if r["kernel"] == name
-            or (name == "mont_mul" and r["kernel"].startswith("mont_"))]
+            or (name == "mont_mul" and r["kernel"].startswith("mont_"))
+            or (name in digit_names and r["kernel"] == name + "_loop")]
         if name == "mont_mul":
             kernels.append(dict(kernels[-1], name=MONT_U32[0],
                                 replaces=MONT_U32[1]))

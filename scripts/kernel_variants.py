@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu and
-fp2_pow_loop.cu on one CUDA card.
+"""Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
+fp2_pow_loop.cu and the two digit-domain Miller step kernels on one CUDA
+card.
 
-    python3 scripts/kernel_variants.py [--kernels mont ladder pow]
+    python3 scripts/kernel_variants.py [--kernels mont ladder pow digits]
                                        [--out build/kernel_variants.json]
 
 It builds the kernel library from bgn_torch/csrc as chip_smoke.py does
@@ -28,11 +29,17 @@ chip_smoke.py), two turns in opposite orders:
     TcFp2Pow<S>) at N = 8192 (pow_loop) and 2048 (fp2_pow_loop), at
     k = 45-47, 90-92 and 184-186 over random residues modulo random
     primes: pow_loop over the bits of p - 2 (64 bits at k = 184-186),
-    fp2_pow_loop over 64 random signed digits.
+    fp2_pow_loop over 64 random signed digits;
+  - miller_dbl_digits.cu and miller_add_digits.cu (--kernels digits): the
+    threads per lane G of the register form, G = 1, 2, 4, 8, 16 at L = 34
+    (N = 8192) with 2, 4, 8, 16, 32 at L = 64 (N = 512), then the threads
+    per block (digits.cuh BGN_DIGITS_THREADS) 64, 128 and 256 at the G
+    that was fastest for each kernel and L, over random canonical digits
+    modulo random primes of 512 and 1000 bits.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
 builds take most of its time (mont and ladder: ~15 minutes on the H100
-machine's 8 cores).  Needs the card: without one it exits nonzero
+machine's 8 cores; digits: ~8 minutes).  Needs the card: without one it exits nonzero
 before timing anything.
 """
 
@@ -62,6 +69,55 @@ POW_SOURCES = ["pow_loop.cu", "fp2_pow_loop.cu"]
 # blocks per SM of the two power kernels (at S = 4, at S = 6)
 POW_BLOCKS = [(1, 1), (2, 2), (3, 1), (4, 1)]
 POW_N = (1, 16, 64, 512, 2048, 8192)
+DIGIT_SOURCES = ["miller_dbl_digits.cu", "miller_add_digits.cu"]
+DIGIT_CASE = re.compile(r"case (\d+): return (dbl|add)_launch<(\d+), (\d+)>")
+DIGIT_THREADS_LINE = re.compile(r"#define BGN_DIGITS_THREADS (\d+)")
+# threads per lane (at L = 34, at L = 64) of both kernels
+DIGIT_G = [(1, 2), (2, 4), (4, 8), (8, 16), (16, 32)]
+DIGIT_THREADS = (64, 128, 256)
+# (kernel, L, lanes, prime bits) timed
+DIGIT_SHAPES = [(kind, L, n, bits) for kind in ("dbl", "add")
+                for L, n, bits in ((34, 8192, 512), (64, 512, 1000))]
+
+
+def digit_variant(g: dict, threads: int) -> tuple:
+    """The two digit sources with the dispatch's G set per (kernel, L)
+    (g: {(kind, L): G}) and BGN_DIGITS_THREADS set to threads."""
+    csrc = ROOT / "bgn_torch" / "csrc"
+    reps = [("digits.cuh", m.group(0), f"#define BGN_DIGITS_THREADS {threads}")
+            for m in DIGIT_THREADS_LINE.finditer(
+                (csrc / "digits.cuh").read_text())]
+    for src in DIGIT_SOURCES:
+        for m in DIGIT_CASE.finditer((csrc / src).read_text()):
+            L, kind = int(m.group(1)), m.group(2)
+            reps.append((src, m.group(0), f"case {L}: return {kind}_launch<"
+                         f"{L // 2}, {g[(kind, L)]}>"))
+    return DIGIT_SOURCES, reps
+
+
+def time_jobs(jobs, libs, cs, torch, log) -> dict:
+    """{label: {library: [ms of turn 0, ms of turn 1]}}: each job on each
+    of its libraries (the wrappers' library swapped), checked against its
+    plain output, in two turns of opposite order."""
+    from bgn_torch import _build
+    real_library = _build.library
+    times = {}
+    try:
+        for turn in (0, 1):
+            for label, names, fn, want in jobs:
+                for name in (names if turn == 0 else names[::-1]):
+                    _build.library = lambda lib=libs[name]: lib
+                    got = fn()
+                    got = got if isinstance(got, tuple) else (got,)
+                    w = want if isinstance(want, tuple) else (want,)
+                    if not all(torch.equal(g, v) for g, v in zip(got, w)):
+                        raise AssertionError(f"{label} [{name}] != plain")
+                    ms = cs.cuda_ms(fn, torch, budget_ms=300.0)
+                    times.setdefault(label, {}).setdefault(name, []).append(ms)
+            log(f"turn {turn} timed")
+    finally:
+        _build.library = real_library
+    return times
 
 
 def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
@@ -119,8 +175,9 @@ def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernels", nargs="+", choices=("mont", "ladder", "pow"),
-                    default=["mont", "ladder", "pow"])
+    ap.add_argument("--kernels", nargs="+",
+                    choices=("mont", "ladder", "pow", "digits"),
+                    default=["mont", "ladder", "pow", "digits"])
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "kernel_variants.json"))
     args = ap.parse_args()
@@ -137,7 +194,7 @@ def main() -> None:
     from bgn_torch import _build, hostmath as hm
     from bgn_torch.fieldcore import cuda_mont, limbs as lb, montgomery as mg
     from bgn_torch.fieldcore import rns as rn
-    from bgn_torch.ops import cuda_rns
+    from bgn_torch.ops import cuda_pairing, cuda_rns
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -149,7 +206,8 @@ def main() -> None:
     log(f"built the library in {_build.BUILD_INFO['seconds']:.1f} s")
     for r in cs.ptxas_table(_build.BUILD_INFO["ptxas"]):
         if r["kernel"].startswith(("mont_", "ladder_loop", "pow_loop",
-                                   "fp2_pow_loop")):
+                                   "fp2_pow_loop", "miller_dbl_digits",
+                                   "miller_add_digits")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -179,15 +237,28 @@ def main() -> None:
                 for m in re.finditer(r"(struct Tc(?:Fp2)?Pow \{\n  static "
                                      r"constexpr int min_blocks = )[^;]*;",
                                      tc_src)])
-    libs, reports = compile_variants(_build.BUILD_DIR, _build.CSRC,
-                                     _build._nvcc(), variants)
-    log(f"built {len(libs)} variants")
-    for name, rep in reports.items():
-        for r in cs.ptxas_table(rep):
-            log(f"  ptxas [{name}] {r['kernel']} {r['S']} {r['G']}: "
-                f"{r['registers']} registers, spill stores "
-                f"{r['spill_stores']} B")
-    libs = {"shipped": shipped, **libs}
+    if "digits" in args.kernels:
+        shipped_threads = int(DIGIT_THREADS_LINE.search(
+            (_build.CSRC / "digits.cuh").read_text()).group(1))
+        for g34, g64 in DIGIT_G:
+            g = {(kind, L): G for kind in ("dbl", "add")
+                 for L, G in ((34, g34), (64, g64))}
+            variants[f"digits G={g34},{g64}"] = digit_variant(
+                g, shipped_threads)
+
+    def build_variants(variants):
+        libs, reports = compile_variants(_build.BUILD_DIR, _build.CSRC,
+                                         _build._nvcc(), variants)
+        log(f"built {len(libs)} variants")
+        for name, rep in reports.items():
+            for r in cs.ptxas_table(rep):
+                log(f"  ptxas [{name}] {r['kernel']} {r['S']} {r['G']}: "
+                    f"{r['registers']} registers, spill stores "
+                    f"{r['spill_stores']} B, spill loads "
+                    f"{r['spill_loads']} B")
+        return libs
+
+    libs = {"shipped": shipped, **build_variants(variants)}
 
     dev = torch.device("cuda")
     rng = random.Random(7)
@@ -265,23 +336,51 @@ def main() -> None:
                                  plain))
         log("power inputs and plain outputs ready")
 
-    real_library = _build.library
-    times = {}
-    try:
-        for turn in (0, 1):
-            for label, names, fn, want in jobs:
-                for name in (names if turn == 0 else names[::-1]):
-                    _build.library = lambda lib=libs[name]: lib
-                    got = fn()
-                    got = got if isinstance(got, tuple) else (got,)
-                    w = want if isinstance(want, tuple) else (want,)
-                    if not all(torch.equal(g, v) for g, v in zip(got, w)):
-                        raise AssertionError(f"{label} [{name}] != plain")
-                    ms = cs.cuda_ms(fn, torch, budget_ms=300.0)
-                    times.setdefault(label, {}).setdefault(name, []).append(ms)
-            log(f"turn {turn} timed")
-    finally:
-        _build.library = real_library
+    digit_jobs = {}
+    if "digits" in args.kernels:       # random digits, random primes
+        for kind, L, n, bits in DIGIT_SHAPES:
+            p = hm.gen_prime(bits, rng=rng)
+            ctx = mg.make_mont_ctx(p, L=L, device=dev)
+            arrays = [cuda_pairing.to_digits(torch.as_tensor(
+                lb.ints_to_limbs([rng.randrange(p) for _ in range(n)], L),
+                device=dev)) for _ in range(7 if kind == "dbl" else 9)]
+            step = cuda_pairing.dbl_step if kind == "dbl" \
+                else cuda_pairing.add_step
+            plain = cuda_pairing.dbl_step_plain if kind == "dbl" \
+                else cuda_pairing.add_step_plain
+            groups = (arrays[:3], arrays[3:5], *[arrays[i:i + 2] for i in
+                                                  range(5, len(arrays), 2)])
+            digit_jobs[(kind, L)] = (
+                f"miller_{kind}_digits L={L} N={n}",
+                lambda c=ctx, a=groups, f=step: sum(f(c, *a), ()),
+                sum(plain(ctx, *groups), ()))
+            jobs.append((digit_jobs[(kind, L)][0],
+                         ["shipped"] + [v for v in libs
+                                        if v.startswith("digits")],
+                         *digit_jobs[(kind, L)][1:]))
+        log("digit inputs and plain outputs ready")
+
+    times = time_jobs(jobs, libs, cs, torch, log)
+    if "digits" in args.kernels:       # threads per block at the best G
+        best = {}
+        for (kind, L), (label, _, _) in digit_jobs.items():
+            per = {name: sum(ms) for name, ms in times[label].items()
+                   if name.startswith("digits")}
+            gs = dict(zip((f"digits G={a},{b}" for a, b in DIGIT_G),
+                          DIGIT_G))[min(per, key=per.get)]
+            best[(kind, L)] = gs[0] if L == 34 else gs[1]
+        log(f"fastest G per (kernel, L): {best}")
+        libs.update(build_variants({
+            f"threads={t}": digit_variant(best, t)
+            for t in DIGIT_THREADS}))
+        more = time_jobs([(label, ["shipped"] + [v for v in libs
+                                                 if v.startswith("threads")],
+                           fn, want)
+                          for label, fn, want in digit_jobs.values()],
+                         libs, cs, torch, log)
+        for label, per in more.items():
+            times[label].update({k: v for k, v in per.items()
+                                 if k != "shipped"})
     for label, per in times.items():
         print(label, flush=True)
         for name, ms in per.items():

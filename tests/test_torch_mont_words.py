@@ -9,7 +9,10 @@ bound the kernel's comments claim (a carry word that must be 0 or below
 2) is asserted where the kernel relies on it.  No JAX.
 
 The kernel's dispatch (L -> W words, G threads per lane) is read from
-the source, so the emulation follows it.
+the source, so the emulation follows it.  The word product
+(words_product, loop_product) and the final subtraction (sub_p_if_ge)
+are mont_words.cuh's, which the digit-domain Miller steps share;
+tests/test_torch_digits_words.py runs them there.
 """
 import random
 import re
@@ -79,23 +82,37 @@ def _store(words: np.ndarray, L: int) -> np.ndarray:
     return limbs.T.astype(np.int64)
 
 
-def emulate_words_kernel(L, G, a, b, p):
-    """bgn_mont_words_kernel<W = L/2, G> on lanes a, b ([L, n] limbs),
-    modulus p; returns [L, n] limbs."""
-    W = L // 2
-    assert L == 2 * W and 32 % G == 0
-    S = (W + G) // G
-    assert G * S >= W + 1
-    n = a.shape[1]
+def sub_p_if_ge(T, pv):
+    """bgn_sub_p_if_ge: T [n, G, S] < 2p -> T mod p in place, through the
+    borrow rounds of T - p (b0 / b1: a slice's borrow out for a borrow in
+    of 0 / 1)."""
+    n, G, S = T.shape
+    s = T.astype(np.int64) - pv.astype(np.int64)
+    b0 = np.zeros((n, G), dtype=bool)
+    eq = np.ones((n, G), dtype=bool)
+    for j in range(S):
+        d = s[..., j] - b0
+        b0 = d < 0
+        eq &= (d & 0xFFFFFFFF) == 0
+    b1 = b0 | eq
+    bin_ = np.zeros((n, G), dtype=bool)
+    for _ in range(G - 1):
+        bin_ = _from_below(np.where(bin_, b1, b0))
+    ge = ~np.where(bin_, b1, b0)[:, -1]
+    borrow = bin_.astype(np.int64)
+    for j in range(S):
+        d = s[..., j] - borrow
+        borrow = (d < 0).astype(np.int64)
+        T[..., j] = np.where(ge[:, None], (d & 0xFFFFFFFF).astype(np.uint64),
+                              T[..., j])
 
-    def sliced(limbs):                   # [n, G, S]: thread t, word j
-        w = np.zeros((limbs.shape[0], G * S), dtype=np.uint64)
-        w[:, :W] = _words(limbs, W)
-        return w.reshape(-1, G, S)
 
-    av, bv = sliced(a.T.astype(np.uint64)), sliced(b.T.astype(np.uint64))
-    pv = sliced(lb.ints_to_limbs([p], L).T.astype(np.uint64))
-    pinv = np.uint64(_neg_inv32(p & 0xFFFFFFFF))
+def words_product(av, bv, pv, W):
+    """bgn_mont_words<W, G, S>: a*b*R^-1 mod p, R = 2^(32W), on operands
+    split over G threads ([n, G, S]: thread t, word j; pv [1, G, S]);
+    returns T [n, G, S]."""
+    n, G, S = av.shape
+    pinv = np.uint64(_neg_inv32(int(pv[0, 0, 0])))
     T = np.zeros((n, G, S), dtype=np.uint64)
     P = np.zeros((n, G), dtype=np.uint64)
     for i in range(W):
@@ -119,38 +136,36 @@ def emulate_words_kernel(L, G, a, b, p):
         assert not carry[:, -1].any()
         P = _from_below(carry)
     assert not P.any()
-    # the borrow rounds of T - p
-    s = T.astype(np.int64) - pv.astype(np.int64)
-    b0 = np.zeros((n, G), dtype=bool)
-    eq = np.ones((n, G), dtype=bool)
-    for j in range(S):
-        d = s[..., j] - b0
-        b0 = d < 0
-        eq &= (d & 0xFFFFFFFF) == 0
-    b1 = b0 | eq
-    bin_ = np.zeros((n, G), dtype=bool)
-    for _ in range(G - 1):
-        bin_ = _from_below(np.where(bin_, b1, b0))
-    ge = ~np.where(bin_, b1, b0)[:, -1]
-    borrow = bin_.astype(np.int64)
-    for j in range(S):
-        d = s[..., j] - borrow
-        borrow = (d < 0).astype(np.int64)
-        T[..., j] = np.where(ge[:, None], (d & 0xFFFFFFFF).astype(np.uint64),
-                              T[..., j])
+    sub_p_if_ge(T, pv)
+    return T
+
+
+def emulate_words_kernel(L, G, a, b, p):
+    """bgn_mont_words_kernel<W = L/2, G> on lanes a, b ([L, n] limbs),
+    modulus p; returns [L, n] limbs."""
+    W = L // 2
+    assert L == 2 * W and 32 % G == 0
+    S = (W + G) // G
+    assert G * S >= W + 1
+    n = a.shape[1]
+
+    def sliced(limbs):                   # [n, G, S]: thread t, word j
+        w = np.zeros((limbs.shape[0], G * S), dtype=np.uint64)
+        w[:, :W] = _words(limbs, W)
+        return w.reshape(-1, G, S)
+
+    av, bv = sliced(a.T.astype(np.uint64)), sliced(b.T.astype(np.uint64))
+    pv = sliced(lb.ints_to_limbs([p], L).T.astype(np.uint64))
+    T = words_product(av, bv, pv, W)
     return _store(T.reshape(n, G * S)[:, :W], L)
 
 
-def emulate_loop_kernel(L, a, b, p):
-    """bgn_mont_loop_kernel at any L, odd included; returns [L, n]."""
+def loop_product(aw, bv, ps, L):
+    """bgn_mont_loop_steps + bgn_loop_sub_p: aw [n, W] words of a, bv
+    [n, S] and ps [S] words (a zero word W); returns [n, S] words."""
     W = (L + 1) // 2
     S = W + 1
-    n = a.shape[1]
-    bv = np.zeros((n, S), dtype=np.uint64)
-    bv[:, :W] = _words(b.T.astype(np.uint64), W)
-    ps = np.zeros(S, dtype=np.uint64)
-    ps[:W] = _words(lb.ints_to_limbs([p], L).T.astype(np.uint64), W)[0]
-    aw = _words(a.T.astype(np.uint64), W)
+    n = aw.shape[0]
     pinv = np.uint64(_neg_inv32(int(ps[0])))
     T = np.zeros((n, S), dtype=np.uint64)
     for i in range(L // 2):
@@ -160,8 +175,10 @@ def emulate_loop_kernel(L, a, b, p):
         T[:, :-1] = T[:, 1:].copy()
         T[:, -1] = cA + cB
         assert (cA + cB).max() < 2
-    if L & 1:
-        cA = _chain(T, a[L - 1].astype(np.uint64), bv, 0)
+    if L & 1:                            # a.half(): limb L - 1 alone
+        ah = aw[:, W - 1]
+        assert not (ah >> SH16).any()
+        cA = _chain(T, ah, bv, 0)
         m = (T[:, 0] * pinv) & np.uint64(0xFFFF)
         cB = _chain(T, m, ps, 0)
         assert not (T[:, 0] & np.uint64(0xFFFF)).any()
@@ -175,8 +192,20 @@ def emulate_loop_kernel(L, a, b, p):
         d = s[:, j] - borrow
         borrow = (d < 0).astype(np.int64)
         diff[:, j] = d & 0xFFFFFFFF
-    r = np.where(borrow[:, None].astype(bool), T, diff)
-    return _store(r, L)
+    return np.where(borrow[:, None].astype(bool), T, diff)
+
+
+def emulate_loop_kernel(L, a, b, p):
+    """bgn_mont_loop_kernel at any L, odd included; returns [L, n]."""
+    W = (L + 1) // 2
+    S = W + 1
+    n = a.shape[1]
+    bv = np.zeros((n, S), dtype=np.uint64)
+    bv[:, :W] = _words(b.T.astype(np.uint64), W)
+    ps = np.zeros(S, dtype=np.uint64)
+    ps[:W] = _words(lb.ints_to_limbs([p], L).T.astype(np.uint64), W)[0]
+    aw = _words(a.T.astype(np.uint64), W)
+    return _store(loop_product(aw, bv, ps, L), L)
 
 
 def _modulus(rng, L, full):
