@@ -30,10 +30,10 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types, the stream last; the RNS kernels take
-# (blob, k, slots, ...) first, miller_loop, ladder_loop, pow_loop and
-# fp2_pow_loop (blob, planes, k, slots, ...); bgn_mont_mul_loop is
-# mont_mul's local-memory loop at any L (chip_smoke.py times it beside the
-# register kernels)
+# (blob, k, slots, ...) first, miller_loop, ladder_loop, pow_loop,
+# fp2_pow_loop, dbl_step and pow_step (blob, planes, k, slots, ...);
+# bgn_mont_mul_loop is mont_mul's local-memory loop at any L (chip_smoke.py
+# times it beside the register kernels)
 _SIGNATURES = {
     "bgn_mont_mul": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P, _I, _P],
     "bgn_mont_mul_loop": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _P, _I, _P],
@@ -48,11 +48,11 @@ _SIGNATURES = {
     "bgn_window_ladder_tab": [_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                               _I, _P],
     "bgn_window_ladder": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
-    "bgn_dbl_step": [_P, _I, _I] + [_P] * 12 + [_I, _P],
+    "bgn_dbl_step": [_P, _P, _I, _I] + [_P] * 12 + [_I, _P],
     "bgn_add_step": [_P, _I, _I] + [_P] * 14 + [_I, _P],
     "bgn_pt_dbl": [_P, _I, _I] + [_P] * 6 + [_I, _P],
     "bgn_pt_add": [_P, _I, _I] + [_P] * 8 + [_I, _P],
-    "bgn_pow_step": [_P, _I, _I, _P, _P, _I, _P, _I, _P],
+    "bgn_pow_step": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
     # the digit-domain Miller steps: (inputs, outputs, p, L, n)
     "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _P],

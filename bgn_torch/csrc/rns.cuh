@@ -59,12 +59,13 @@
 // agree bit for bit.  Above k = 192 there is no instantiation (a key with
 // more channels takes the limb path: scheme._make_rns).
 //
-// The product r_mul_v below is the one every RNS kernel runs except four:
-// miller_loop.cu, ladder_loop.cu, pow_loop.cu and fp2_pow_loop.cu run the
-// block-wide tensor-core product of rns_tc.cuh, the first two and the
-// last through the product policy of the step functions (dbl_step,
-// add_step; dbl_pt, add_pt; fp2_sqr, fp2_mul).  What bounds each on the
-// H100 is written there.
+// The product r_mul_v below is the one every RNS kernel runs except six:
+// miller_loop.cu, ladder_loop.cu, pow_loop.cu, fp2_pow_loop.cu,
+// dbl_step.cu and pow_step.cu run the block-wide tensor-core product of
+// rns_tc.cuh, the Miller loop, the ladder, fp2_pow_loop and dbl_step.cu
+// through the product policy of the step functions (dbl_step, add_step;
+// dbl_pt, add_pt; fp2_sqr, fp2_mul).  What bounds each on the H100 is
+// written there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -433,8 +434,9 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
 
 // The product policy of the step functions (dbl_step, add_step, dbl_pt,
 // add_pt, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
-// r_mul_v, one warp per lane; miller_loop.cu, ladder_loop.cu and
-// fp2_pow_loop.cu pass the block-wide product of rns_tc.cuh.
+// r_mul_v, one warp per lane; miller_loop.cu, ladder_loop.cu,
+// fp2_pow_loop.cu and dbl_step.cu pass the block-wide product of
+// rns_tc.cuh.
 template <int S>
 struct MulWarp {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,

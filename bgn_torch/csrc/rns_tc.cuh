@@ -1,7 +1,8 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
-// the product miller_loop.cu, ladder_loop.cu, pow_loop.cu and
-// fp2_pow_loop.cu run.  The other RNS kernels keep r_mul_v.
+// the product miller_loop.cu, ladder_loop.cu, pow_loop.cu,
+// fp2_pow_loop.cu, dbl_step.cu and pow_step.cu run.  The other RNS kernels
+// keep r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -60,7 +61,10 @@
 // four blocks (64 registers, some state spilled to L1) beat one to three,
 // five and six; at S = 6 one block keeps the state in registers, and a
 // 1024-bit batch of 512 lanes fills only 64 SMs anyway.  G = 16 lost at
-// S = 4 and 6 (PERF.md, the PR 6 sweep).
+// S = 4 and 6 (PERF.md, the PR 6 sweep).  dbl_step.cu, one doubling of the
+// Miller loop per launch, takes the same caps: at S = 4, N = 8192 four
+// blocks beat one to three and five, at S = 6 one block is best at the
+// 1024-bit key's batches (PERF.md §6, the step sweep).
 template <int S>
 struct TcLanes {
   static constexpr int G = 8;
@@ -87,7 +91,9 @@ struct TcLadder {
 // blocks) is best at two blocks, at S = 4 (112 registers; three or four
 // spill) and at S = 6 (128 registers against 133 at one block, so two
 // blocks fit an SM: 1.10 against 1.90 ms).  pow_loop at S = 6 is the same
-// at every cap.
+// at every cap.  pow_step.cu, one square-and-multiply per launch, takes
+// TcPow too: at S = 4, N = 8192 four blocks beat one to three and five
+// (PERF.md §6, the step sweep).
 template <int S>
 struct TcPow {
   static constexpr int min_blocks = S == 4 ? 4 : 1;

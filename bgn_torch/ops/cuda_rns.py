@@ -47,13 +47,13 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Nine of them
+two extension matrices in device memory above k = 96).  Seven of them
 compute the base extensions as exact 32-bit integer dot products per
-warp; miller_loop, ladder_loop, pow_loop and fp2_pow_loop run blocks of
-G lanes whose warps compute them together on the tensor cores, from the
-u8 planes of the extension matrices (`tc_planes`).  csrc/rns.cuh and
-csrc/rns_tc.cuh say what bounds them and why.  They agree with the plain
-versions bit for bit.
+warp; miller_loop, ladder_loop, pow_loop, fp2_pow_loop, dbl_step and
+pow_step run blocks of G lanes whose warps compute them together on the
+tensor cores, from the u8 planes of the extension matrices
+(`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what bounds them
+and why.  They agree with the plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -669,15 +669,22 @@ window_ladder.launches = 0
 
 
 def _step_launch(wrapper, entry: str, rns: RNSCtx, ins, n_out: int,
-                 *scalars):
-    """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n)."""
+                 *scalars, tc: bool = False):
+    """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n);
+    tc: a tensor-core kernel (dbl_step, pow_step), which takes the matrix
+    planes after the blob.  A wrapper with a `launches_by_n` dict also
+    counts its launches per N there."""
     n = _check_state(rns, *ins)
     outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
     if n:
-        _launch(entry, _ptr(const_blob(rns)), rns.k, slots_for(rns.k),
-                *(_ptr(t) for t in ins), *scalars,
+        planes = (_ptr(tc_planes(rns)),) if tc else ()
+        _launch(entry, _ptr(const_blob(rns)), *planes, rns.k,
+                slots_for(rns.k), *(_ptr(t) for t in ins), *scalars,
                 *(_ptr(t) for t in outs), n)
         wrapper.launches += 1
+        by_n = getattr(wrapper, "launches_by_n", None)
+        if by_n is not None:
+            by_n[n] = by_n.get(n, 0) + 1
     return outs
 
 
@@ -688,12 +695,13 @@ def dbl_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
 
 
 def dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
-    """Wrapper: one Miller doubling step as one kernel on the card; every
-    argument [2k, N]."""
+    """Wrapper: one Miller doubling step as one kernel on the card, blocks
+    of lanes whose base extensions run on the tensor cores (as
+    miller_loop's); every argument [2k, N]."""
     if _is_cpu(X):
         return dbl_step_plain(rns, X, Y, Z, fr, fi, xb, yb)
     return _step_launch(dbl_step, "bgn_dbl_step", rns,
-                        (X, Y, Z, fr, fi, xb, yb), 5)
+                        (X, Y, Z, fr, fi, xb, yb), 5, tc=True)
 
 
 dbl_step.launches = 0
@@ -757,14 +765,17 @@ def pow_step_plain(rns: RNSCtx, acc, x, bit: int):
 
 def pow_step(rns: RNSCtx, acc, x, bit: int):
     """Wrapper: one F_p square-and-multiply step as one kernel on the
-    card; acc, x [2k, N], bit a host int."""
+    card, blocks of lanes whose base extensions run on the tensor cores
+    (as pow_loop's); acc, x [2k, N], bit a host int.  `launches_by_n`
+    splits the launches by N."""
     if _is_cpu(acc):
         return pow_step_plain(rns, acc, x, bit)
     return _step_launch(pow_step, "bgn_pow_step", rns, (acc, x), 1,
-                        int(bit))[0]
+                        int(bit), tc=True)[0]
 
 
 pow_step.launches = 0
+pow_step.launches_by_n = {}
 
 
 def fp2_pow_step_plain(rns: RNSCtx, ar, ai, xr, xi, bit: int):

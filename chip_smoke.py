@@ -17,14 +17,17 @@ Phases, each of which raises on failure (the script then exits nonzero):
      32 words, G threads per lane, and the loop form for any other L);
      the count of
      tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
-     pow_loop and fp2_pow_loop kernels (blocks of G lanes, base
-     extensions on the tensor cores: csrc/rns_tc.cuh) for each S, which
-     must be > 0;
+     pow_loop, fp2_pow_loop, dbl_step and pow_step kernels (blocks of G
+     lanes, base extensions on the tensor cores: csrc/rns_tc.cuh) for
+     each S, which must be > 0, and their shared memory per block;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
-     N = batch, pow_step also at N = 1; miller_loop also at N = batch - 3
+     N = batch, dbl_step also at N = batch - 1, decrypt-batch and 1,
+     pow_step also at N = batch - 1, decrypt-batch, 7 and 1, ragged and
+     short blocks of G lanes, at every key size; miller_loop also at
+     N = batch - 3
      and N = 1, a ragged last block; ladder_loop with three identity-base
      lanes, also at N = decrypt-batch - 3; pow_loop also at N = batch - 3,
      64, 7, 2, short last blocks of lanes on zeros, each timed, and at
@@ -73,8 +76,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      Encrypt and Mult torch.equal to phase 4's outputs on the same inputs;
      EncryptDeterministic, Add, Sub, Neg, MultConst, MakeL2 -> Decrypt at
      decrypt-batch lanes; every lane checked; each step kernel must be
-     launched and the five loop-only kernels must not; ops/s of a first
-     and a second call;
+     launched and the five loop-only kernels must not; pow_step's
+     launches split by N; ops/s of a first and a second call;
   4g. the limb-domain configuration, BGNParams(rns_miller="0"), on phase
      2's key: Encrypt -> Mult (the fused Miller loop through the two digit
      kernels) -> DecryptL2 at batch lanes on phase 4's inputs, Encrypt
@@ -99,7 +102,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
   5. one call of each op under torch.profiler (the re-randomized Mult and
      L2 Add, the step-mode Mult and Encrypt, and the limb-mode Mult and
      Encrypt included): device busy time, idle share, the costliest
-     device kernels and the wrappers' launches.
+     device kernels, the wrappers' launches and the host's
+     cudaFuncSetAttribute and cudaLaunchKernel calls; then the host
+     microseconds per launch of each step wrapper at N = 1 (the median of
+     seven rounds of 40 launches).
 The line before the last is one JSON object {"kernels": [...]} (times,
 launches, bounds; one row per TPU kernel, 17 in all, mont_mul's under
 both TPU forms it replaces); the last line is {"ok": true, "device":
@@ -262,14 +268,37 @@ def cuda_ms(fn, torch, budget_ms: float = 1500.0) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def host_us(fn, torch, rounds: int = 7, reps: int = 40) -> float:
+    """Host microseconds of one call of fn (a wrapper's Python, ctypes
+    and CUDA runtime calls): the median over rounds of reps calls, each
+    round enqueued behind a sleep kernel, so no call waits for the card
+    (the median, as the host's cores are shared and a round can stall)."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t) * 1e6 / reps)
+        torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
+# the host's CUDA runtime calls that profile_op counts
+RUNTIME_CALLS = ("cudaFuncSetAttribute", "cudaLaunchKernel")
+
+
 def profile_op(torch, label: str, fn, card: str, wrappers,
                top: int = 6) -> None:
     """One call of fn under torch.profiler: wall time, summed device time
     of its kernels (device-side events only, so a torch op and the kernel
     it launches are not both counted), the device's idle share, the
     costliest kernels and every kernel of the port's own (bgn_*), each
-    with its share of the busy time, and each wrapper's launches in the
-    call.  The raw
+    with its share of the busy time, each wrapper's launches in the call,
+    and the count and host time of the runtime calls RUNTIME_CALLS (a
+    kernel's launch, a launcher's shared-memory limit).  The raw
     events are read directly: key_averages() takes minutes over the ~10^6
     events of a limb-path call.  The profiler's own host overhead
     lengthens the wall time, so the idle share is an upper estimate."""
@@ -284,11 +313,14 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t) * 1e3
-    by_name = {}
+    by_name, runtime = {}, {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             ms, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        elif e.name() in RUNTIME_CALLS:
+            us, n = runtime.get(e.name(), (0.0, 0))
+            runtime[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     busy = sum(ms for ms, _ in by_name.values())
     log(f"trace {label}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall:.3f}, "
@@ -301,6 +333,9 @@ def profile_op(torch, label: str, fn, card: str, wrappers,
     log("  launches: " + str({name: wfn.launches
                               for name, wfn in wrappers.items()
                               if wfn.launches}))
+    log("  host runtime calls: " + ", ".join(
+        f"{name} x{n} {us:.0f} us ({us / max(n, 1):.2f} us each)"
+        for name, (us, n) in sorted(runtime.items())))
     return wall, busy, by_name
 
 
@@ -450,8 +485,15 @@ def main() -> None:
             f"constants; miller_loop: "
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
+    for k_ in (45, 90, 185):
+        S_ = cuda_rns.slots_for(k_)
+        log(f"  k = {k_}: dbl_step, pow_step (blocks of G lanes, the "
+            "rns_tc.cuh layout of miller_loop): "
+            f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
+            "shared memory per block")
     imma = {}
-    for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop"):
+    for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
+                 "dbl_step", "pow_step"):
         imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
                                  _build._nvcc(), "IMMA")
         log(f"  IMMA (tensor-core) instructions in the SASS of "
@@ -531,8 +573,9 @@ def main() -> None:
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder, miller_loop, window_ladder_tab, window_ladder at B
         lanes, ladder_loop and fp2_pow_loop (q1) at Bd, pow_loop at B and
-        1; the step kernels at B (pt_dbl, pt_add and fp2_pow_step also at
-        Bd, pow_step at 1), and a chain of step launches against each
+        1; the step kernels at B (dbl_step also at B - 1, Bd and 1,
+        pow_step at B - 1, Bd, 7 and 1, pt_dbl, pt_add and fp2_pow_step at
+        Bd), and a chain of step launches against each
         loop kernel.  trunc: cut every digit string to its first trunc
         digits and the random exponents to trunc bits (the plain versions
         then stay short)."""
@@ -720,20 +763,26 @@ def main() -> None:
 
         # the six step kernels, one launch each, at the shapes of the
         # per-step configuration: Miller steps at B (state: the dual
-        # ladder's point and the Miller value), the G1 steps at B (the
-        # window chains) and Bd (the decrypt ladder), pow_step at B and 1,
-        # fp2_pow_step at B and Bd, both with bit 1 and 0
+        # ladder's point and the Miller value; dbl_step also at Bd, as
+        # MakeL2 runs it), the G1 steps at B (the window chains) and Bd
+        # (the decrypt ladder), pow_step at B, Bd and 1, fp2_pow_step at B
+        # and Bd, both with bit 1 and 0; dbl_step and pow_step also at
+        # ragged and short blocks of G lanes
         blob = cuda_rns.blob_layout(k)["words"] * f32
         st = tuple(v.contiguous() for v in (X, Y, Z, fr, fi))
-        for name, ins, counts, rows in (
-                ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12),
-                ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14)):
+        for name, ins, counts, rows, lanes in (
+                ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12,
+                 (B, B - 1, Bd, 1)),
+                ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14,
+                 (B,))):
             e, mm = ops_of(k, counts)
-            check(name, f"N={B}",
-                  lambda f=getattr(cuda_rns, name), a=ins: f(rns, *a),
-                  lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
-                      f(rns, *a),
-                  (B * e, B * mm), rows * B * state + blob, key_bits)
+            for n in dict.fromkeys(lanes):
+                a_n = tuple(v[:, :n].contiguous() for v in ins)
+                check(name, f"N={n}",
+                      lambda f=getattr(cuda_rns, name), a=a_n: f(rns, *a),
+                      lambda f=getattr(cuda_rns, name + "_plain"), a=a_n:
+                          f(rns, *a),
+                      (n * e, n * mm), rows * n * state + blob, key_bits)
         for n in dict.fromkeys((B, Bd)):
             p3 = tuple(v[:, :n].contiguous() for v in st[:3])
             a2 = (ax[:, :n].contiguous(), ay[:, :n].contiguous())
@@ -746,7 +795,7 @@ def main() -> None:
                       lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
                           f(rns, *a),
                       (n * e, n * mm), rows * n * state + blob, key_bits)
-        for n in dict.fromkeys((B, 1)):
+        for n in dict.fromkeys((B, B - 1, Bd, 7, 1)):
             for bit in (1, 0):
                 ins = (aa.v[:, :n].contiguous(), norm[:, :n].contiguous(),
                        bit)
@@ -877,6 +926,7 @@ def main() -> None:
     def zero_counts():
         for wfn in wrappers.values():
             wfn.launches = 0
+        cuda_rns.pow_step.launches_by_n.clear()
 
     def read_counts(path_name, must):
         counts = {name: wfn.launches for name, wfn in wrappers.items()}
@@ -1231,6 +1281,8 @@ def main() -> None:
         t_d = decrypt_all(sk, pk, tables, out, want, f"step-mode {op}", Bd)
         ops_s[op] = (fn, t1, t_d)
     launches_step = read_counts("step", STEP_PATH)
+    pow_step_by_n = dict(sorted(cuda_rns.pow_step.launches_by_n.items()))
+    log(f"step mode: pow_step launches by N {pow_step_by_n}")
     for name in LOOP_ONLY:
         if launches_step[name]:
             raise AssertionError(f"{name} launched {launches_step[name]} "
@@ -1454,6 +1506,19 @@ def main() -> None:
             log(f"  limb-mode Mult: the digit steps {digit_ms:.1f} ms of "
                 f"{busy:.1f} ms busy ({100 * digit_ms / busy:.1f} %), idle "
                 f"share {1 - busy / wall:.3f} [{card}]")
+    # host time per step launch at N = 1 (what a lone chain of the
+    # per-step configuration, as step-mode Encrypt's inversions, waits on)
+    o = [rns.one_rns.expand(2 * k, 1).contiguous() for _ in range(9)]
+    for name, fn in (
+            ("dbl_step", lambda: cuda_rns.dbl_step(rns, *o[:7])),
+            ("pow_step", lambda: cuda_rns.pow_step(rns, o[0], o[1], 1)),
+            ("add_step", lambda: cuda_rns.add_step(rns, *o)),
+            ("pt_dbl", lambda: cuda_rns.pt_dbl(rns, *o[:3])),
+            ("pt_add", lambda: cuda_rns.pt_add(rns, *o[:5])),
+            ("fp2_pow_step", lambda: cuda_rns.fp2_pow_step(rns, *o[:4],
+                                                           1))):
+        log(f"host time per {name} launch (N = 1): "
+            f"{host_us(fn, torch):.2f} us [{card}]")
     phase_done("5 (profile)")
 
     kernels = []
@@ -1487,6 +1552,8 @@ def main() -> None:
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
         if name in imma:
             kernels[-1]["sass_imma"] = imma[name]
+        if name == "pow_step":
+            kernels[-1]["launches_by_n"] = pow_step_by_n
         kernels[-1]["ptxas"] = [
             r for r in ptxas if r["kernel"] == name
             or (name == "mont_mul" and r["kernel"].startswith("mont_"))

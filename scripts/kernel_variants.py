@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
-fp2_pow_loop.cu and the two digit-domain Miller step kernels on one CUDA
-card.
+fp2_pow_loop.cu, the two digit-domain Miller step kernels and the two
+tensor-core step kernels (dbl_step.cu, pow_step.cu) on one CUDA card.
 
-    python3 scripts/kernel_variants.py [--kernels mont ladder pow digits]
+    python3 scripts/kernel_variants.py [--kernels mont ladder pow digits
+                                        step]
                                        [--out build/kernel_variants.json]
 
 It builds the kernel library from bgn_torch/csrc as chip_smoke.py does
@@ -35,12 +36,19 @@ chip_smoke.py), two turns in opposite orders:
     (N = 8192) with 2, 4, 8, 16, 32 at L = 64 (N = 512), then the threads
     per block (digits.cuh BGN_DIGITS_THREADS) 64, 128 and 256 at the G
     that was fastest for each kernel and L, over random canonical digits
-    modulo random primes of 512 and 1000 bits.
+    modulo random primes of 512 and 1000 bits;
+  - dbl_step.cu and pow_step.cu (--kernels step): the shipped build at
+    N = 1, 7, 8191 and 8192 (k = 45-47), 1, 512 and 8192 (k = 90-92) and
+    1 and 16 (k = 184-186), pow_step at bit 1 and bit 0, and the blocks
+    per SM that __launch_bounds__ asks at S = 4 and S = 6 (rns_tc.cuh
+    TcLanes<S> for dbl_step, TcPow<S> for pow_step, both set alike in the
+    two sources' builds) at N = 8192 (k = 45-47) and N = 512 and 8192
+    (k = 90-92), over random residues modulo random primes.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
 builds take most of its time (mont and ladder: ~15 minutes on the H100
-machine's 8 cores; digits: ~8 minutes).  Needs the card: without one it exits nonzero
-before timing anything.
+machine's 8 cores; digits: ~8 minutes; step: ~2 minutes in all).  Needs
+the card: without one it exits nonzero before timing anything.
 """
 
 from __future__ import annotations
@@ -78,6 +86,18 @@ DIGIT_THREADS = (64, 128, 256)
 # (kernel, L, lanes, prime bits) timed
 DIGIT_SHAPES = [(kind, L, n, bits) for kind in ("dbl", "add")
                 for L, n, bits in ((34, 8192, 512), (64, 512, 1000))]
+STEP_SOURCES = ["dbl_step.cu", "pow_step.cu"]
+# blocks per SM of both step kernels (at S = 4, at S = 6); the shipped
+# policy is timed as "shipped"
+STEP_BLOCKS = [(1, 1), (2, 2), (3, 3), (5, 1)]
+# the policies of dbl_step (the Miller kernel's) and pow_step (pow_loop's)
+STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Pow) \{\n(?:  static constexpr "
+                         r"int G = \d+;\n)?  static constexpr int min_blocks "
+                         r"= )[^;]*;")
+# (prime bits, lanes timed, lanes on which the variants are timed)
+STEP_SHAPES = ((528, (1, 7, 8191, 8192), (8192,)),
+               (1056, (1, 512, 8192), (512, 8192)),
+               (2080, (1, 16), ()))
 
 
 def digit_variant(g: dict, threads: int) -> tuple:
@@ -176,8 +196,8 @@ def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", nargs="+",
-                    choices=("mont", "ladder", "pow", "digits"),
-                    default=["mont", "ladder", "pow", "digits"])
+                    choices=("mont", "ladder", "pow", "digits", "step"),
+                    default=["mont", "ladder", "pow", "digits", "step"])
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "kernel_variants.json"))
     args = ap.parse_args()
@@ -207,7 +227,8 @@ def main() -> None:
     for r in cs.ptxas_table(_build.BUILD_INFO["ptxas"]):
         if r["kernel"].startswith(("mont_", "ladder_loop", "pow_loop",
                                    "fp2_pow_loop", "miller_dbl_digits",
-                                   "miller_add_digits")):
+                                   "miller_add_digits", "dbl_step",
+                                   "pow_step")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -237,6 +258,13 @@ def main() -> None:
                 for m in re.finditer(r"(struct Tc(?:Fp2)?Pow \{\n  static "
                                      r"constexpr int min_blocks = )[^;]*;",
                                      tc_src)])
+    if "step" in args.kernels:
+        tc_src = (_build.CSRC / "rns_tc.cuh").read_text()
+        for b4, b6 in STEP_BLOCKS:
+            variants[f"step b4={b4} b6={b6}"] = (STEP_SOURCES, [
+                ("rns_tc.cuh", m.group(0), f"{m.group(1)}S == 4 ? {b4} : "
+                 f"S == 6 ? {b6} : 1;")
+                for m in STEP_POLICY.finditer(tc_src)])
     if "digits" in args.kernels:
         shipped_threads = int(DIGIT_THREADS_LINE.search(
             (_build.CSRC / "digits.cuh").read_text()).group(1))
@@ -335,6 +363,28 @@ def main() -> None:
                     jobs.append((f"{kern} k={k} N={n} {tag}", names, fn,
                                  plain))
         log("power inputs and plain outputs ready")
+
+    if "step" in args.kernels:         # random residues, random primes
+        for bits, lanes, swept in STEP_SHAPES:
+            p = hm.gen_prime(bits, rng=rng)
+            rns = rn.make_rns_ctx(p, device=dev)
+            for n in lanes:
+                st = [rn.to_rns_mont(rns, torch.as_tensor(lb.ints_to_limbs(
+                    [rng.randrange(p) for _ in range(n)], rns.L),
+                    device=dev)).v.contiguous() for _ in range(7)]
+                names = ["shipped"]
+                if n in swept:
+                    names += [v for v in libs if v.startswith("step b")]
+                jobs.append((f"dbl_step k={rns.k} N={n}", names,
+                             lambda r=rns, a=st: cuda_rns.dbl_step(r, *a),
+                             cuda_rns.dbl_step_plain(rns, *st)))
+                for bit in (1, 0):
+                    a = (st[0], st[1], bit)
+                    jobs.append((f"pow_step k={rns.k} N={n} bit={bit}",
+                                 names,
+                                 lambda r=rns, a=a: cuda_rns.pow_step(r, *a),
+                                 cuda_rns.pow_step_plain(rns, *a)))
+        log("step inputs and plain outputs ready")
 
     digit_jobs = {}
     if "digits" in args.kernels:       # random digits, random primes

@@ -1,6 +1,7 @@
-"""csrc/pow_loop.cu and csrc/fp2_pow_loop.cu on the tensor-core block
-product, held on the CPU without JAX: whole pow_loop_plain and
-fp2_pow_loop_plain chains with every product's extension sums routed
+"""csrc/pow_loop.cu, csrc/fp2_pow_loop.cu and csrc/pow_step.cu on the
+tensor-core block product, held on the CPU without JAX: whole
+pow_loop_plain and fp2_pow_loop_plain chains, and a chain of
+pow_step_plain launches, with every product's extension sums routed
 through test_torch_tc_ext.py's integer emulation of rns_tc.cuh's block
 product, over n lanes padded to whole blocks of G with the zero inputs
 the kernels give lanes past n (n = 1: the lone Fermat inversion of
@@ -68,25 +69,37 @@ def _values(ctx, n, seed):
         [rng.randrange(p) for _ in range(n)], ctx.L)))
 
 
+def _pow_steps(ctx, acc, x):
+    """Square-and-multiply steps at bit 1, then bit 0, one launch each as
+    cuda_rns._pow_chain makes them; the output of each step."""
+    outs = []
+    for bit in (1, 0):
+        acc = cuda_rns.pow_step_plain(ctx, acc, x, bit)
+        outs.append(acc)
+    return tuple(outs)
+
+
 def _chains(ctx):
     """(name, plain chain on lanes, its inputs [2k, n] each): a short
-    pow_loop chain (bits 1, 0, 1, 1, 0, 1) and fp2_pow_loop chain (digits
+    pow_loop chain (bits 1, 0, 1, 1, 0, 1), fp2_pow_loop chain (digits
     1, -1, 0, 1: a square per digit, a product with x or conj(x) on the
-    nonzero ones)."""
+    nonzero ones) and pow_step chain (bits 1, 0, from a random acc)."""
     return (("pow_loop", lambda *a: (cuda_rns.pow_loop_plain(
                 ctx, *a, [1, 0, 1, 1, 0, 1]),), 1),
             ("fp2_pow_loop", lambda *a: cuda_rns.fp2_pow_loop_plain(
-                ctx, *a, [1, -1, 0, 1]), 2))
+                ctx, *a, [1, -1, 0, 1]), 2),
+            ("pow_step", lambda *a: _pow_steps(ctx, *a), 2))
 
 
 @pytest.mark.parametrize("n", [1, 13])
-@pytest.mark.parametrize("kernel", ["pow_loop", "fp2_pow_loop"])
+@pytest.mark.parametrize("kernel", ["pow_loop", "fp2_pow_loop", "pow_step"])
 def test_chains_on_the_block_product(ctx, kernel, n, monkeypatch):
     """n lanes padded to whole blocks of G = 8 with the zero inputs the
     kernel gives lanes past n (X = 0, and for fp2_pow_loop conj(x)'s
-    10p - 0; the accumulators start at one), every product's extensions
-    on the emulated block product; the padded chains' n lanes equal the
-    unpadded plain chains bit for bit."""
+    10p - 0; the loop kernels' accumulators start at one, pow_step's acc
+    is 0), every product's extensions on the emulated block product; the
+    padded chains' n lanes equal the unpadded plain chains bit for bit,
+    pow_step's after each step."""
     name, chain, nin = next(c for c in _chains(ctx) if c[0] == kernel)
     ins = [_values(ctx, n, 2 * ctx.k + i) for i in range(nin)]
     want = chain(*ins)
