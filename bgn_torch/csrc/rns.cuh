@@ -59,13 +59,13 @@
 // agree bit for bit.  Above k = 192 there is no instantiation (a key with
 // more channels takes the limb path: scheme._make_rns).
 //
-// The product r_mul_v below is the one every RNS kernel runs except six:
-// miller_loop.cu, ladder_loop.cu, pow_loop.cu, fp2_pow_loop.cu,
-// dbl_step.cu and pow_step.cu run the block-wide tensor-core product of
-// rns_tc.cuh, the Miller loop, the ladder, fp2_pow_loop and dbl_step.cu
-// through the product policy of the step functions (dbl_step, add_step;
-// dbl_pt, add_pt; fp2_sqr, fp2_mul).  What bounds each on the H100 is
-// written there.
+// The product r_mul_v below is the one every RNS kernel runs except
+// eight: miller_loop.cu, ladder_loop.cu, pow_loop.cu, fp2_pow_loop.cu,
+// dual_ladder.cu, dbl_step.cu, add_step.cu and pow_step.cu run the
+// block-wide tensor-core product of rns_tc.cuh, all but the two power
+// kernels' products through the product policy of the step functions
+// (dbl_step, add_step; dbl_pt, add_pt, jac_add_full; fp2_sqr, fp2_mul).
+// What bounds each on the H100 is written there.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -433,10 +433,10 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
 }
 
 // The product policy of the step functions (dbl_step, add_step, dbl_pt,
-// add_pt, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
+// add_pt, jac_add_full, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
 // r_mul_v, one warp per lane; miller_loop.cu, ladder_loop.cu,
-// fp2_pow_loop.cu and dbl_step.cu pass the block-wide product of
-// rns_tc.cuh.
+// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu and add_step.cu pass the
+// block-wide product of rns_tc.cuh.
 template <int S>
 struct MulWarp {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
@@ -669,9 +669,55 @@ static __device__ __forceinline__ bool win_chain(const RnsConsts& c,
   return st;
 }
 
+// The window chain of win_chain computed for every lane and selected, as
+// the TPU kernel (_dual_ladder_kernel) and the plain version
+// (ops/cuda_rns.py _window_chain) run it, so that every warp of a block
+// runs the same products (Mul: the block-wide product of rns_tc.cuh).
+// At every window each warp gathers its lane's row d (a dead window,
+// d = 0, and a lane >= n, which reads no digit, gather row 0: residues
+// of 0) and adds it to the accumulator (add_pt, 11 products); then a
+// live window sets the accumulator to the row (Z = 1) if none was live
+// before, else to the sum, and a dead one keeps it.  The accumulator
+// starts at X = Y = 0, Z = 1, as the plain version's, so every operand
+// of a discarded product is canonical.  Returns whether a window was
+// live.
+template <int S, class Mul>
+static __device__ __forceinline__ bool win_chain_sel(
+    const RnsConsts& c, Fe<S>& X, Fe<S>& Y, Fe<S>& Z, const float* tx,
+    const float* ty, int R, const int* digits, int j0, int j1, int n,
+    int lane) {
+  fe_zero(X);
+  fe_zero(Y);
+  fe_one(c, Z);
+  bool st = false;
+  for (int j = j0; j < j1; j++) {
+    const int d = lane < n ? digits[(size_t)j * n + lane] : 0;
+    const size_t row = ((size_t)(j - j0) * R + d) * c.ch;
+    Fe<S> RX, RY, AX, AY, AZ;
+    fe_gather(c, RX, tx + row);
+    fe_gather(c, RY, ty + row);
+    fe_copy(AX, X);
+    fe_copy(AY, Y);
+    fe_copy(AZ, Z);
+    add_pt<S, Mul>(c, AX, AY, AZ, RX, RY);
+    if (d != 0 && !st) {
+      fe_copy(X, RX);
+      fe_copy(Y, RY);
+      fe_one(c, Z);
+    } else if (d != 0) {
+      fe_copy(X, AX);
+      fe_copy(Y, AY);
+      fe_copy(Z, AZ);
+    }
+    st = st || d != 0;
+  }
+  return st;
+}
+
 // General Jacobian + Jacobian addition (both live, not +-equal);
-// result bounds (12, 6, 3).  Outputs overwrite X1, Y1, Z1.
-template <int S>
+// result bounds (12, 6, 3).  Outputs overwrite X1, Y1, Z1.  Mul: the
+// product policy, as for dbl_step.
+template <int S, class Mul = MulWarp<S>>
 static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
                                                     Fe<S>& X1, Fe<S>& Y1,
                                                     Fe<S>& Z1,
@@ -679,28 +725,28 @@ static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
                                                     const Fe<S>& Y2,
                                                     const Fe<S>& Z2) {
   Fe<S> Z1Z1, Z2Z2, T1, T2, Z1Z2, U1, U2, S1, H, Rr, ta;
-  r_mul(c, Z1Z1, Z1, Z1);
-  r_mul(c, Z2Z2, Z2, Z2);
-  r_mul(c, T1, Y1, Z2);
-  r_mul(c, T2, Y2, Z1);
-  r_mul(c, Z1Z2, Z1, Z2);
-  r_mul(c, U1, X1, Z2Z2);
-  r_mul(c, U2, X2, Z1Z1);
-  r_mul(c, S1, T1, Z2Z2);
-  r_mul(c, ta, T2, Z1Z1);            // S2
+  Mul::mul(c, Z1Z1, Z1, Z1);
+  Mul::mul(c, Z2Z2, Z2, Z2);
+  Mul::mul(c, T1, Y1, Z2);
+  Mul::mul(c, T2, Y2, Z1);
+  Mul::mul(c, Z1Z2, Z1, Z2);
+  Mul::mul(c, U1, X1, Z2Z2);
+  Mul::mul(c, U2, X2, Z1Z1);
+  Mul::mul(c, S1, T1, Z2Z2);
+  Mul::mul(c, ta, T2, Z1Z1);         // S2
   r_sub(c, H, U2, U1, 3);
   r_sub(c, Rr, ta, S1, 3);
-  r_mul(c, Z1Z1, H, H);              // HH
-  r_mul(c, Z2Z2, Rr, Rr);            // RR
-  r_mul(c, T1, H, Z1Z1);             // HHH
-  r_mul(c, T2, U1, Z1Z1);            // V
-  r_mul(c, Z1, Z1Z2, H);             // Z3
+  Mul::mul(c, Z1Z1, H, H);           // HH
+  Mul::mul(c, Z2Z2, Rr, Rr);         // RR
+  Mul::mul(c, T1, H, Z1Z1);          // HHH
+  Mul::mul(c, T2, U1, Z1Z1);         // V
+  Mul::mul(c, Z1, Z1Z2, H);          // Z3
   r_sub(c, X1, Z2Z2, T1, 3);
   r_sub(c, X1, X1, T2, 3);
   r_sub(c, X1, X1, T2, 3);           // X3, 12
   r_sub(c, ta, T2, X1, 12);
-  r_mul(c, U1, Rr, ta);              // RVX3
-  r_mul(c, U2, S1, T1);              // S1HHH
+  Mul::mul(c, U1, Rr, ta);           // RVX3
+  Mul::mul(c, U2, S1, T1);           // S1HHH
   r_sub(c, Y1, U1, U2, 3);           // Y3, 6
 }
 

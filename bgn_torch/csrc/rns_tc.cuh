@@ -1,8 +1,8 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
 // the product miller_loop.cu, ladder_loop.cu, pow_loop.cu,
-// fp2_pow_loop.cu, dbl_step.cu and pow_step.cu run.  The other RNS kernels
-// keep r_mul_v.
+// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu, add_step.cu and
+// pow_step.cu run.  The other RNS kernels keep r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -49,7 +49,8 @@
 // Lanes >= n of the last block run on zeros and store nothing, so every
 // warp of the block reaches every barrier; the Miller and ladder digits
 // are shared by all lanes, so all warps run the same sequence of
-// products.
+// products, and the dual ladder's per-lane window digits pick among
+// additions computed for every lane (rns.cuh win_chain_sel).
 #pragma once
 
 #include "rns.cuh"
@@ -64,7 +65,8 @@
 // S = 4 and 6 (PERF.md, the PR 6 sweep).  dbl_step.cu, one doubling of the
 // Miller loop per launch, takes the same caps: at S = 4, N = 8192 four
 // blocks beat one to three and five, at S = 6 one block is best at the
-// 1024-bit key's batches (PERF.md §6, the step sweep).
+// 1024-bit key's batches (PERF.md §6, the step sweep); so do add_step.cu,
+// one addition per launch, and dual_ladder.cu (the encrypt sweep).
 template <int S>
 struct TcLanes {
   static constexpr int G = 8;
@@ -306,8 +308,9 @@ static __device__ __noinline__ Fe<S> r_mul_tc(const int k, const Fe<S> x,
 }
 
 // The product policy that runs r_mul_tc: of the step functions (dbl_step,
-// add_step, dbl_pt, add_pt) in miller_loop.cu and ladder_loop.cu, and of
-// fp2_sqr / fp2_mul in fp2_pow_loop.cu.
+// add_step, dbl_pt, add_pt) in miller_loop.cu, ladder_loop.cu,
+// dbl_step.cu and add_step.cu, of add_pt and jac_add_full in
+// dual_ladder.cu, and of fp2_sqr / fp2_mul in fp2_pow_loop.cu.
 template <int S>
 struct MulTc {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,

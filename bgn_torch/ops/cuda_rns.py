@@ -47,12 +47,12 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Seven of them
+two extension matrices in device memory above k = 96).  Five of them
 compute the base extensions as exact 32-bit integer dot products per
-warp; miller_loop, ladder_loop, pow_loop, fp2_pow_loop, dbl_step and
-pow_step run blocks of G lanes whose warps compute them together on the
-tensor cores, from the u8 planes of the extension matrices
-(`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what bounds them
+warp; miller_loop, ladder_loop, pow_loop, fp2_pow_loop, dual_ladder,
+dbl_step, add_step and pow_step run blocks of G lanes whose warps compute
+them together on the tensor cores, from the u8 planes of the extension
+matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what bounds them
 and why.  They agree with the plain versions bit for bit.
 """
 
@@ -504,7 +504,10 @@ def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
 
 
 def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
-    """Wrapper: the fused Encrypt core as one kernel on the card."""
+    """Wrapper: the fused Encrypt core as one kernel on the card, blocks
+    of lanes whose base extensions run on the tensor cores (as
+    miller_loop's), every window's addition computed for every lane and
+    selected, as dual_ladder_plain does."""
     tx = p_tab[0]
     if _is_cpu(tx):
         return dual_ladder_plain(rns, p_tab, q_tab, Jm, digits, m_neg)
@@ -520,7 +523,8 @@ def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     X = torch.empty((2 * rns.k, n), dtype=torch.float32, device=tx.device)
     Y, Z = torch.empty_like(X), torch.empty_like(X)
     if n:
-        _launch("bgn_dual_ladder", _ptr(const_blob(rns)), rns.k, S,
+        _launch("bgn_dual_ladder", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, S,
                 _ptr(p_tab[0]), _ptr(p_tab[1]), _ptr(q_tab[0]),
                 _ptr(q_tab[1]), R, Jm, Jt, _ptr(dg), _ptr(mn),
                 _ptr(X), _ptr(Y), _ptr(Z), n)
@@ -671,8 +675,8 @@ window_ladder.launches = 0
 def _step_launch(wrapper, entry: str, rns: RNSCtx, ins, n_out: int,
                  *scalars, tc: bool = False):
     """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n);
-    tc: a tensor-core kernel (dbl_step, pow_step), which takes the matrix
-    planes after the blob.  A wrapper with a `launches_by_n` dict also
+    tc: a tensor-core kernel (dbl_step, add_step, pow_step), which takes
+    the matrix planes after the blob.  A wrapper with a `launches_by_n` dict also
     counts its launches per N there."""
     n = _check_state(rns, *ins)
     outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
@@ -715,14 +719,18 @@ def add_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
 
 
 def add_step(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
-    """Wrapper: one Miller addition step as one kernel on the card."""
+    """Wrapper: one Miller addition step as one kernel on the card, blocks
+    of lanes whose base extensions run on the tensor cores (as
+    dbl_step's); every argument [2k, N].  `launches_by_n` splits the
+    launches by N."""
     if _is_cpu(X):
         return add_step_plain(rns, X, Y, Z, fr, fi, ax, ay, xb, yb)
     return _step_launch(add_step, "bgn_add_step", rns,
-                        (X, Y, Z, fr, fi, ax, ay, xb, yb), 5)
+                        (X, Y, Z, fr, fi, ax, ay, xb, yb), 5, tc=True)
 
 
 add_step.launches = 0
+add_step.launches_by_n = {}
 
 
 def pt_dbl_plain(rns: RNSCtx, X, Y, Z):

@@ -17,18 +17,20 @@ Phases, each of which raises on failure (the script then exits nonzero):
      32 words, G threads per lane, and the loop form for any other L);
      the count of
      tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
-     pow_loop, fp2_pow_loop, dbl_step and pow_step kernels (blocks of G
-     lanes, base extensions on the tensor cores: csrc/rns_tc.cuh) for
-     each S, which must be > 0, and their shared memory per block;
+     pow_loop, fp2_pow_loop, dual_ladder, dbl_step, add_step and pow_step
+     kernels (blocks of G lanes, base extensions on the tensor cores:
+     csrc/rns_tc.cuh) for each S, which must be > 0, and their shared
+     memory per block;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
-     N = batch, dbl_step also at N = batch - 1, decrypt-batch and 1,
-     pow_step also at N = batch - 1, decrypt-batch, 7 and 1, ragged and
-     short blocks of G lanes, at every key size; miller_loop also at
-     N = batch - 3
-     and N = 1, a ragged last block; ladder_loop with three identity-base
+     N = batch, dbl_step and add_step also at N = batch - 1,
+     decrypt-batch and 1, pow_step also at N = batch - 1, decrypt-batch,
+     7 and 1, ragged and short blocks of G lanes, at every key size;
+     dual_ladder at N = batch, batch - 1 and 1, its first lanes m = 0,
+     r = 0, m < 0 and the identity m = r = 0, whose Z must be 0;
+     miller_loop also at N = batch - 3 and N = 1, a ragged last block; ladder_loop with three identity-base
      lanes, also at N = decrypt-batch - 3; pow_loop also at N = batch - 3,
      64, 7, 2, short last blocks of lanes on zeros, each timed, and at
      N = 1 the time per product of the lone chain), and mont_mul at L = 34
@@ -76,8 +78,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      Encrypt and Mult torch.equal to phase 4's outputs on the same inputs;
      EncryptDeterministic, Add, Sub, Neg, MultConst, MakeL2 -> Decrypt at
      decrypt-batch lanes; every lane checked; each step kernel must be
-     launched and the five loop-only kernels must not; pow_step's
-     launches split by N; ops/s of a first and a second call;
+     launched and the five loop-only kernels must not; the launches of
+     each step wrapper with a `launches_by_n` dict split by N; ops/s of
+     a first and a second call;
   4g. the limb-domain configuration, BGNParams(rns_miller="0"), on phase
      2's key: Encrypt -> Mult (the fused Miller loop through the two digit
      kernels) -> DecryptL2 at batch lanes on phase 4's inputs, Encrypt
@@ -487,13 +490,13 @@ def main() -> None:
             "shared memory per block")
     for k_ in (45, 90, 185):
         S_ = cuda_rns.slots_for(k_)
-        log(f"  k = {k_}: dbl_step, pow_step (blocks of G lanes, the "
-            "rns_tc.cuh layout of miller_loop): "
+        log(f"  k = {k_}: dual_ladder, dbl_step, add_step, pow_step "
+            "(blocks of G lanes, the rns_tc.cuh layout of miller_loop): "
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
     imma = {}
     for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
-                 "dbl_step", "pow_step"):
+                 "dual_ladder", "dbl_step", "add_step", "pow_step"):
         imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
                                  _build._nvcc(), "IMMA")
         log(f"  IMMA (tensor-core) instructions in the SASS of "
@@ -571,11 +574,12 @@ def main() -> None:
 
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
-        dual_ladder, miller_loop, window_ladder_tab, window_ladder at B
-        lanes, ladder_loop and fp2_pow_loop (q1) at Bd, pow_loop at B and
-        1; the step kernels at B (dbl_step also at B - 1, Bd and 1,
-        pow_step at B - 1, Bd, 7 and 1, pt_dbl, pt_add and fp2_pow_step at
-        Bd), and a chain of step launches against each
+        dual_ladder (also at B - 1 and 1), miller_loop, window_ladder_tab,
+        window_ladder at B lanes, ladder_loop and fp2_pow_loop (q1) at Bd,
+        pow_loop at B and 1; the step kernels at B (dbl_step and add_step
+        also at B - 1, Bd and 1, pow_step at B - 1, Bd, 7 and 1, pt_dbl,
+        pt_add and fp2_pow_step at Bd), and a chain of step launches
+        against each
         loop kernel.  trunc: cut every digit string to its first trunc
         digits and the random exponents to trunc bits (the plain versions
         then stay short)."""
@@ -584,8 +588,14 @@ def main() -> None:
         state = 2 * k * f32                # bytes of one residue element
         krng = random.Random(seed)
         top = pk.n if trunc is None else 1 << trunc
-        ms = [krng.randrange(340) for _ in range(B)]
-        rs = [krng.randrange(top) for _ in range(B)]
+        # fixed lanes before the random ones: m = 0 with r != 0, r = 0
+        # with m != 0, m < 0 (m_neg = 1) with r != 0 and with r = 0, and
+        # the identity m = r = 0 (lane IDENT)
+        ms = [0, 100, -13, -7, 0] + [krng.randrange(340)
+                                     for _ in range(B - 5)]
+        rs = [12345, 0, 424242, 0, 0] + [krng.randrange(top)
+                                         for _ in range(B - 5)]
+        ident_lane = 4
         m_digits, m_neg = scheme._signed_digits(ms, pk.n)
         r_digits, _ = scheme._signed_digits(rs, pk.n)
         Jm = m_digits.shape[0]
@@ -597,23 +607,35 @@ def main() -> None:
         l_bits = dk.l_bits.cpu().numpy()[:trunc]
         q1_naf = np.asarray(sk.q1_naf)[:trunc]
 
-        # dual ladder (Encrypt core) at B lanes
-        live = dig_np != 0
-        adds = 0
-        for rows in (live[:Jm], live[Jm:]):
-            adds += int(np.maximum(rows.sum(axis=0) - 1, 0).sum())
-        combines = int((live[:Jm].any(axis=0) & live[Jm:].any(axis=0)).sum())
+        # dual ladder (Encrypt core) at B lanes, and at B - 1 and 1 (a
+        # ragged and a short last block of lanes); the bound counts the
+        # live windows' additions, the combines of lanes with both chains
+        # live and the live windows' rows
         e1, m1 = ops_of(k, {"add_pt": 1})
         e2, m2 = ops_of(k, {"jac_add_full": 1})
-        tab_bytes = sum(t.numel() * f32 for t in (*dk.p_win, *dk.q_win))
-        X, Y, Z = check(
-            "dual_ladder", f"B={B}, Jm={Jm}, Jt={dig_np.shape[0]}",
-            lambda: cuda_rns.dual_ladder(rns, dk.p_win, dk.q_win, Jm, dig,
-                                         mneg),
-            lambda: cuda_rns.dual_ladder_plain(rns, dk.p_win, dk.q_win, Jm,
-                                               dig, mneg),
-            (adds * e1 + combines * e2, adds * m1 + combines * m2),
-            tab_bytes + dig_np.size * 8 + B * 8 + 3 * B * state, key_bits)
+        Jt = dig_np.shape[0]
+        for n in dict.fromkeys((B, B - 1, 1)):
+            live = dig_np[:, :n] != 0
+            adds = 0
+            for rows in (live[:Jm], live[Jm:]):
+                adds += int(np.maximum(rows.sum(axis=0) - 1, 0).sum())
+            combines = int((live[:Jm].any(axis=0)
+                            & live[Jm:].any(axis=0)).sum())
+            d_n, mn_n = dig[:, :n].contiguous(), mneg[:n].contiguous()
+            out = check(
+                "dual_ladder", f"B={n}, Jm={Jm}, Jt={Jt}",
+                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder(
+                    rns, dk.p_win, dk.q_win, Jm, d, mn),
+                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder_plain(
+                    rns, dk.p_win, dk.q_win, Jm, d, mn),
+                (adds * e1 + combines * e2, adds * m1 + combines * m2),
+                int(live.sum()) * 2 * state + (Jt + 1) * n * 4
+                + 3 * n * state, key_bits)
+            if n > ident_lane and bool((out[2][:, ident_lane] != 0).any()):
+                raise AssertionError(f"dual_ladder B={n}: the identity "
+                                     "lane's Z is not 0")
+            if n == B:
+                X, Y, Z = out
 
         # window_ladder_tab (EncryptDeterministic) at B lanes: the bench
         # digits (m < 340) and full-width digits (m < n); window_ladder on
@@ -763,10 +785,10 @@ def main() -> None:
 
         # the six step kernels, one launch each, at the shapes of the
         # per-step configuration: Miller steps at B (state: the dual
-        # ladder's point and the Miller value; dbl_step also at Bd, as
-        # MakeL2 runs it), the G1 steps at B (the window chains) and Bd
-        # (the decrypt ladder), pow_step at B, Bd and 1, fp2_pow_step at B
-        # and Bd, both with bit 1 and 0; dbl_step and pow_step also at
+        # ladder's point and the Miller value; also at Bd, as MakeL2 runs
+        # them), the G1 steps at B (the window chains) and Bd (the decrypt
+        # ladder), pow_step at B, Bd and 1, fp2_pow_step at B and Bd, both
+        # with bit 1 and 0; dbl_step, add_step and pow_step also at
         # ragged and short blocks of G lanes
         blob = cuda_rns.blob_layout(k)["words"] * f32
         st = tuple(v.contiguous() for v in (X, Y, Z, fr, fi))
@@ -774,7 +796,7 @@ def main() -> None:
                 ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12,
                  (B, B - 1, Bd, 1)),
                 ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14,
-                 (B,))):
+                 (B, B - 1, Bd, 1))):
             e, mm = ops_of(k, counts)
             for n in dict.fromkeys(lanes):
                 a_n = tuple(v[:, :n].contiguous() for v in ins)
@@ -926,7 +948,8 @@ def main() -> None:
     def zero_counts():
         for wfn in wrappers.values():
             wfn.launches = 0
-        cuda_rns.pow_step.launches_by_n.clear()
+        for wfn in wrappers.values():
+            getattr(wfn, "launches_by_n", {}).clear()
 
     def read_counts(path_name, must):
         counts = {name: wfn.launches for name, wfn in wrappers.items()}
@@ -1281,8 +1304,11 @@ def main() -> None:
         t_d = decrypt_all(sk, pk, tables, out, want, f"step-mode {op}", Bd)
         ops_s[op] = (fn, t1, t_d)
     launches_step = read_counts("step", STEP_PATH)
-    pow_step_by_n = dict(sorted(cuda_rns.pow_step.launches_by_n.items()))
-    log(f"step mode: pow_step launches by N {pow_step_by_n}")
+    step_by_n = {name: dict(sorted(wfn.launches_by_n.items()))
+                 for name, wfn in wrappers.items()
+                 if hasattr(wfn, "launches_by_n")}
+    for name, by_n in step_by_n.items():
+        log(f"step mode: {name} launches by N {by_n}")
     for name in LOOP_ONLY:
         if launches_step[name]:
             raise AssertionError(f"{name} launched {launches_step[name]} "
@@ -1552,8 +1578,8 @@ def main() -> None:
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
         if name in imma:
             kernels[-1]["sass_imma"] = imma[name]
-        if name == "pow_step":
-            kernels[-1]["launches_by_n"] = pow_step_by_n
+        if name in step_by_n:
+            kernels[-1]["launches_by_n"] = step_by_n[name]
         kernels[-1]["ptxas"] = [
             r for r in ptxas if r["kernel"] == name
             or (name == "mont_mul" and r["kernel"].startswith("mont_"))

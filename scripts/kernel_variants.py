@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
-fp2_pow_loop.cu, the two digit-domain Miller step kernels and the two
-tensor-core step kernels (dbl_step.cu, pow_step.cu) on one CUDA card.
+fp2_pow_loop.cu, the two digit-domain Miller step kernels, the three
+tensor-core step kernels (dbl_step.cu, add_step.cu, pow_step.cu) and
+dual_ladder.cu on one CUDA card.
 
     python3 scripts/kernel_variants.py [--kernels mont ladder pow digits
-                                        step]
+                                        step encrypt]
                                        [--out build/kernel_variants.json]
 
 It builds the kernel library from bgn_torch/csrc as chip_smoke.py does
@@ -37,17 +38,26 @@ chip_smoke.py), two turns in opposite orders:
     per block (digits.cuh BGN_DIGITS_THREADS) 64, 128 and 256 at the G
     that was fastest for each kernel and L, over random canonical digits
     modulo random primes of 512 and 1000 bits;
-  - dbl_step.cu and pow_step.cu (--kernels step): the shipped build at
-    N = 1, 7, 8191 and 8192 (k = 45-47), 1, 512 and 8192 (k = 90-92) and
-    1 and 16 (k = 184-186), pow_step at bit 1 and bit 0, and the blocks
-    per SM that __launch_bounds__ asks at S = 4 and S = 6 (rns_tc.cuh
-    TcLanes<S> for dbl_step, TcPow<S> for pow_step, both set alike in the
-    two sources' builds) at N = 8192 (k = 45-47) and N = 512 and 8192
-    (k = 90-92), over random residues modulo random primes.
+  - dbl_step.cu, add_step.cu and pow_step.cu (--kernels step): the
+    shipped build at N = 1, 7, 8191 and 8192 (k = 45-47), 1, 512 and 8192
+    (k = 90-92) and 1 and 16 (k = 184-186), pow_step at bit 1 and bit 0,
+    and the blocks per SM that __launch_bounds__ asks at S = 4 and S = 6
+    (rns_tc.cuh TcLanes<S> for dbl_step and add_step, TcPow<S> for
+    pow_step, both set alike in the three sources' builds) at N = 8192
+    (k = 45-47) and N = 512 and 8192 (k = 90-92), over random residues
+    modulo random primes;
+  - dual_ladder.cu (--kernels encrypt): the blocks per SM that its
+    __launch_bounds__ asks at S = 4 and S = 6 (1-4 and 1-3; the shipped
+    build is timed too) at k = 45-47, N = 8192, 2 + 64 windows, and
+    k = 90-92, N = 512 and 8192, 2 + 128 windows (the Encrypt shapes of
+    the 512- and 1024-bit keys), over random window tables (residues of
+    random values below random primes, row 0 of every window zeros),
+    random 8-bit digits (dead windows among them) and random m_neg.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
 builds take most of its time (mont and ladder: ~15 minutes on the H100
-machine's 8 cores; digits: ~8 minutes; step: ~2 minutes in all).  Needs
+machine's 8 cores; digits: ~8 minutes; step, encrypt: ~2 minutes each
+in all).  Needs
 the card: without one it exits nonzero before timing anything.
 """
 
@@ -86,7 +96,7 @@ DIGIT_THREADS = (64, 128, 256)
 # (kernel, L, lanes, prime bits) timed
 DIGIT_SHAPES = [(kind, L, n, bits) for kind in ("dbl", "add")
                 for L, n, bits in ((34, 8192, 512), (64, 512, 1000))]
-STEP_SOURCES = ["dbl_step.cu", "pow_step.cu"]
+STEP_SOURCES = ["dbl_step.cu", "add_step.cu", "pow_step.cu"]
 # blocks per SM of both step kernels (at S = 4, at S = 6); the shipped
 # policy is timed as "shipped"
 STEP_BLOCKS = [(1, 1), (2, 2), (3, 3), (5, 1)]
@@ -98,6 +108,13 @@ STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Pow) \{\n(?:  static constexpr "
 STEP_SHAPES = ((528, (1, 7, 8191, 8192), (8192,)),
                (1056, (1, 512, 8192), (512, 8192)),
                (2080, (1, 16), ()))
+# dual_ladder.cu's __launch_bounds__ and its blocks per SM (at S = 4, at
+# S = 6) swept; S = 12 keeps one block
+ENCRYPT_BOUNDS = re.compile(r"__launch_bounds__\(32 \* TcLanes<S>::G, "
+                            r"[^)]*\)")
+ENCRYPT_BLOCKS = [(1, 1), (2, 2), (3, 3), (4, 1)]
+# (prime bits, windows of r, lanes timed); m takes two windows
+ENCRYPT_SHAPES = ((528, 64, (8192,)), (1056, 128, (512, 8192)))
 
 
 def digit_variant(g: dict, threads: int) -> tuple:
@@ -196,8 +213,10 @@ def compile_variants(build_dir: Path, csrc: Path, nvcc: str, variants):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", nargs="+",
-                    choices=("mont", "ladder", "pow", "digits", "step"),
-                    default=["mont", "ladder", "pow", "digits", "step"])
+                    choices=("mont", "ladder", "pow", "digits", "step",
+                             "encrypt"),
+                    default=["mont", "ladder", "pow", "digits", "step",
+                             "encrypt"])
     ap.add_argument("--out", default=str(ROOT / "build"
                                          / "kernel_variants.json"))
     args = ap.parse_args()
@@ -228,7 +247,8 @@ def main() -> None:
         if r["kernel"].startswith(("mont_", "ladder_loop", "pow_loop",
                                    "fp2_pow_loop", "miller_dbl_digits",
                                    "miller_add_digits", "dbl_step",
-                                   "pow_step")):
+                                   "add_step", "pow_step",
+                                   "dual_ladder")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -265,6 +285,14 @@ def main() -> None:
                 ("rns_tc.cuh", m.group(0), f"{m.group(1)}S == 4 ? {b4} : "
                  f"S == 6 ? {b6} : 1;")
                 for m in STEP_POLICY.finditer(tc_src)])
+    if "encrypt" in args.kernels:
+        bounds = ENCRYPT_BOUNDS.search(
+            (_build.CSRC / "dual_ladder.cu").read_text()).group(0)
+        for b4, b6 in ENCRYPT_BLOCKS:
+            variants[f"encrypt b4={b4} b6={b6}"] = (["dual_ladder.cu"], [(
+                "dual_ladder.cu", bounds,
+                "__launch_bounds__(32 * TcLanes<S>::G, "
+                f"S == 4 ? {b4} : S == 6 ? {b6} : 1)")])
     if "digits" in args.kernels:
         shipped_threads = int(DIGIT_THREADS_LINE.search(
             (_build.CSRC / "digits.cuh").read_text()).group(1))
@@ -378,6 +406,10 @@ def main() -> None:
                 jobs.append((f"dbl_step k={rns.k} N={n}", names,
                              lambda r=rns, a=st: cuda_rns.dbl_step(r, *a),
                              cuda_rns.dbl_step_plain(rns, *st)))
+                a9 = st + st[:2]
+                jobs.append((f"add_step k={rns.k} N={n}", names,
+                             lambda r=rns, a=a9: cuda_rns.add_step(r, *a),
+                             cuda_rns.add_step_plain(rns, *a9)))
                 for bit in (1, 0):
                     a = (st[0], st[1], bit)
                     jobs.append((f"pow_step k={rns.k} N={n} bit={bit}",
@@ -385,6 +417,35 @@ def main() -> None:
                                  lambda r=rns, a=a: cuda_rns.pow_step(r, *a),
                                  cuda_rns.pow_step_plain(rns, *a)))
         log("step inputs and plain outputs ready")
+
+    if "encrypt" in args.kernels:      # random tables, digits, m_neg
+        for bits, jr, lanes in ENCRYPT_SHAPES:
+            p = hm.gen_prime(bits, rng=rng)
+            rns = rn.make_rns_ctx(p, device=dev)
+            R = 256
+            tabs = []
+            for J in (2, jr):
+                xy = []
+                for _ in range(2):
+                    v = rn.to_rns_mont(rns, torch.as_tensor(
+                        lb.ints_to_limbs([rng.randrange(p)
+                                          for _ in range(J * R)], rns.L),
+                        device=dev)).v.T.reshape(J, R, 2 * rns.k)
+                    v[:, 0] = 0
+                    xy.append(v.contiguous())
+                tabs.append(tuple(xy))
+            for n in lanes:
+                dig = torch.tensor([[rng.randrange(R) for _ in range(n)]
+                                    for _ in range(2 + jr)], device=dev)
+                mneg = torch.tensor([rng.randrange(2) for _ in range(n)],
+                                    device=dev)
+                a = (*tabs, 2, dig, mneg)
+                jobs.append((f"dual_ladder k={rns.k} N={n} windows=2+{jr}",
+                             ["shipped"] + [v for v in libs
+                                            if v.startswith("encrypt")],
+                             lambda r=rns, a=a: cuda_rns.dual_ladder(r, *a),
+                             cuda_rns.dual_ladder_plain(rns, *a)))
+        log("encrypt inputs and plain outputs ready")
 
     digit_jobs = {}
     if "digits" in args.kernels:       # random digits, random primes

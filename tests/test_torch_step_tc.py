@@ -1,15 +1,18 @@
-"""csrc/dbl_step.cu and csrc/pow_step.cu on the tensor-core block
-product, held on the CPU without JAX: a chain of dbl_step_plain launches
-with every product's extension sums routed through test_torch_tc_ext.py's
+"""csrc/dbl_step.cu, csrc/add_step.cu, csrc/pow_step.cu and
+csrc/dual_ladder.cu on the tensor-core block product, held on the CPU
+without JAX: chains of dbl_step_plain and add_step_plain launches with
+every product's extension sums routed through test_torch_tc_ext.py's
 integer emulation of rns_tc.cuh's block product, over n lanes padded to
-whole blocks of G with the zero inputs the kernel gives lanes past n
+whole blocks of G with the zero inputs the kernels give lanes past n
 (n = 1: seven of eight warps on zeros; n = 13: a short last block), equal
 to the plain steps at every step (pow_step's chain is one of
-test_torch_pow_tc.py's).  Both sources are read for the deadlock of a
-block-wide product (a warp that returns before the kernel's last product
-leaves its block's barriers waiting), and their C entries against the
-ctypes argument types.  The moduli are test_torch_tc_ext.py's: k = 47
-(S = 4), 92 (S = 6) and 186 (S = 12).
+test_torch_pow_tc.py's, dual_ladder's test_torch_dual_tc.py's).  The four
+sources, and the compute-then-select window chain of rns.cuh that
+dual_ladder.cu runs, are read for the deadlock of a block-wide product (a
+warp that returns, continues or breaks before the kernel's last product
+leaves its block's barriers waiting, or desynchronises them), and their C
+entries against the ctypes argument types.  The moduli are
+test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and 186 (S = 12).
 """
 import ctypes
 import re
@@ -28,8 +31,17 @@ G = tpc.G
 KERNELS = {
     "dbl_step": ("dbl_step.cu", "bgn_dbl_step_kernel",
                  r"dbl_step<S, MulTc<S>>\(", "bgn_dbl_step"),
+    "add_step": ("add_step.cu", "bgn_add_step_kernel",
+                 r"add_step<S, MulTc<S>>\(", "bgn_add_step"),
     "pow_step": ("pow_step.cu", "bgn_pow_step_kernel", r"MulTc<S>::mul\(",
                  "bgn_pow_step"),
+    "dual_ladder": ("dual_ladder.cu", "bgn_dual_ladder_kernel",
+                    r"<S, MulTc<S>>\(", "bgn_dual_ladder"),
+}
+# device functions with products that a kernel above calls through the
+# tensor-core policy: (header, function, its products)
+HELPERS = {
+    "win_chain_sel": ("rns.cuh", "win_chain_sel", r"add_pt<S, Mul>\("),
 }
 
 
@@ -39,15 +51,32 @@ def ctx(request):
     return tce._ctx(request.param)
 
 
-def _dbl_chain(ctx, X, Y, Z, fr, fi, xb, yb):
-    """Two Miller doubling steps, as _miller_chain launches them; the
-    outputs of each step."""
+def _two_steps(step, ctx, X, Y, Z, fr, fi, *points):
+    """Two Miller steps of one kind (step: dbl_step_plain with points
+    (xb, yb), add_step_plain with (ax, ay, xb, yb)), as _miller_chain
+    launches them; the outputs of each step."""
     outs = []
     for _ in range(2):
-        X, Y, Z, fr, fi = cuda_rns.dbl_step_plain(ctx, X, Y, Z, fr, fi, xb,
-                                                  yb)
+        X, Y, Z, fr, fi = step(ctx, X, Y, Z, fr, fi, *points)
         outs.append((X, Y, Z, fr, fi))
     return outs
+
+
+def _steps_on_the_block_product(ctx, n, monkeypatch, step, nin, seed):
+    """nin random inputs < p on n lanes, padded to whole blocks of G with
+    zero lanes, two steps on the emulated block product against the
+    unpadded plain steps, bit for bit at each step."""
+    ins = [tpc._values(ctx, n, seed + i) for i in range(nin)]
+    want = _two_steps(step, ctx, *ins)
+    width = -(-n // G) * G
+    pad = [torch.cat([v, v.new_zeros(v.shape[0], width - n)], dim=1)
+           for v in ins]
+    monkeypatch.setattr(trn, "_ext_dot", tpc._routed_ext_dot(
+        ctx, lambda mat, q: tpc._tc_sums(ctx, mat, q)))
+    got = _two_steps(step, ctx, *pad)
+    assert len(got) == len(want) == 2
+    for g_step, w_step in zip(got, want):
+        assert all(torch.equal(g[:, :n], w) for g, w in zip(g_step, w_step))
 
 
 @pytest.mark.parametrize("n", [1, 13])
@@ -57,17 +86,18 @@ def test_steps_on_the_block_product(ctx, n, monkeypatch):
     block product: each step's n lanes equal the unpadded plain step's
     bit for bit (from random X, Y, Z, f < p, then the state bounds 27p,
     6p, 9p after the first step)."""
-    ins = [tpc._values(ctx, n, 3 * ctx.k + i) for i in range(7)]
-    want = _dbl_chain(ctx, *ins)
-    width = -(-n // G) * G
-    pad = [torch.cat([v, v.new_zeros(v.shape[0], width - n)], dim=1)
-           for v in ins]
-    monkeypatch.setattr(trn, "_ext_dot", tpc._routed_ext_dot(
-        ctx, lambda mat, q: tpc._tc_sums(ctx, mat, q)))
-    got = _dbl_chain(ctx, *pad)
-    assert len(got) == len(want)
-    for g_step, w_step in zip(got, want):
-        assert all(torch.equal(g[:, :n], w) for g, w in zip(g_step, w_step))
+    _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.dbl_step_plain,
+                                7, 3 * ctx.k)
+
+
+@pytest.mark.parametrize("n", [1, 13])
+def test_add_steps_on_the_block_product(ctx, n, monkeypatch):
+    """add_step.cu's design, as for dbl_step: the zeros add_step.cu loads
+    for lanes past n (all nine inputs), each step's n lanes equal to the
+    unpadded plain step's bit for bit (from random X, Y, Z, f, A, B < p,
+    then the Miller state's bounds after the first step)."""
+    _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.add_step_plain,
+                                9, 5 * ctx.k)
 
 
 def _source(name: str) -> str:
@@ -90,16 +120,25 @@ def _body(text: str, head: str) -> str:
 
 def test_no_warp_returns_before_the_last_product():
     """r_mul_tc waits at four __syncthreads per product for every warp of
-    the block, so a kernel that lets a warp (a lane past n) return before
-    its last product deadlocks: neither kernel body has a `return` before
-    its last product call, and both call the tensor-core product."""
-    for source, kernel, product, _ in KERNELS.values():
-        body = _body(_source(source), kernel)
+    the block, so a kernel that lets a warp (a lane past n, a dead window)
+    return, continue or break before its last product deadlocks its block
+    or runs its warps' products out of step: no kernel body, and no
+    helper with products that one calls (the window chain of
+    dual_ladder.cu), has a `return`, `continue` or `break` before its last
+    product call, and every kernel calls the tensor-core product."""
+    bodies = [(kernel, _body(_source(source), kernel), product)
+              for source, kernel, product, _ in KERNELS.values()]
+    bodies += [(head, _body(_source(source), head), product)
+               for source, head, product in HELPERS.values()]
+    for name, body, product in bodies:
         calls = [m.start() for m in re.finditer(product, body)]
-        assert calls, f"{kernel} calls no tensor-core product"
-        early = [m.start() for m in re.finditer(r"\breturn\b", body)
-                 if m.start() < calls[-1]]
-        assert not early, f"{kernel}: a return before its last product"
+        assert calls, f"{name} calls no product"
+        early = [m.group(0) for m in re.finditer(
+            r"\b(?:return|continue|break)\b", body) if m.start() < calls[-1]]
+        assert not early, f"{name}: {early[0]} before its last product"
+    dual = _body(_source("dual_ladder.cu"), "bgn_dual_ladder_kernel")
+    assert "win_chain_sel<S, MulTc<S>>(" in dual
+    assert "jac_add_full<S, MulTc<S>>(" in dual
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
