@@ -32,7 +32,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry -> argument types, the stream last; the RNS kernels take
 # (blob, k, slots, ...) first, the tensor-core kernels (miller_loop,
 # ladder_loop, pow_loop, fp2_pow_loop, dual_ladder, dbl_step, add_step,
-# pow_step) (blob, planes, k, slots, ...);
+# pt_dbl, pt_add, pow_step) (blob, planes, k, slots, ...);
 # bgn_mont_mul_loop is mont_mul's local-memory loop at any L (chip_smoke.py
 # times it beside the register kernels)
 _SIGNATURES = {
@@ -51,8 +51,8 @@ _SIGNATURES = {
     "bgn_window_ladder": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
     "bgn_dbl_step": [_P, _P, _I, _I] + [_P] * 12 + [_I, _P],
     "bgn_add_step": [_P, _P, _I, _I] + [_P] * 14 + [_I, _P],
-    "bgn_pt_dbl": [_P, _I, _I] + [_P] * 6 + [_I, _P],
-    "bgn_pt_add": [_P, _I, _I] + [_P] * 8 + [_I, _P],
+    "bgn_pt_dbl": [_P, _P, _I, _I] + [_P] * 6 + [_I, _P],
+    "bgn_pt_add": [_P, _P, _I, _I] + [_P] * 8 + [_I, _P],
     "bgn_pow_step": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_step": [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P],
     # the digit-domain Miller steps: (inputs, outputs, p, L, n)

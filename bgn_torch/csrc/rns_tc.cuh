@@ -1,8 +1,8 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
 // the product miller_loop.cu, ladder_loop.cu, pow_loop.cu,
-// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu, add_step.cu and
-// pow_step.cu run.  The other RNS kernels keep r_mul_v.
+// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu, add_step.cu, pt_dbl.cu,
+// pt_add.cu and pow_step.cu run.  The other RNS kernels keep r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -66,7 +66,10 @@
 // Miller loop per launch, takes the same caps: at S = 4, N = 8192 four
 // blocks beat one to three and five, at S = 6 one block is best at the
 // 1024-bit key's batches (PERF.md §6, the step sweep); so do add_step.cu,
-// one addition per launch, and dual_ladder.cu (the encrypt sweep).
+// one addition per launch, dual_ladder.cu (the encrypt sweep) and
+// pt_add.cu (at N = 8192, Encrypt's window chains, four blocks beat one
+// to three and five by 8-24 %; at the decrypt's 2048 one or two blocks
+// win by 8 %, less in all than Encrypt loses).
 template <int S>
 struct TcLanes {
   static constexpr int G = 8;
@@ -79,7 +82,10 @@ struct TcLanes {
 // at S = 4 a cap of two (112 registers, no spills) beats the Miller
 // kernel's four (64 registers, 408 B spilled), 9.4-9.5 against 9.7-10.0
 // ms; at S = 6 one block beats two and three (PERF.md §6, the sweep of
-// scripts/kernel_variants.py).
+// scripts/kernel_variants.py).  pt_dbl.cu, one doubling of that ladder
+// per launch, takes it too: at N = 2048 two blocks (93 registers, no
+// spills) beat four (64 registers, 152 B spilled) by 6 % (PERF.md §6,
+// the step sweep).
 template <int S>
 struct TcLadder {
   static constexpr int min_blocks = S == 4 ? 2 : 1;

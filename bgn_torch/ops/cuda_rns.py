@@ -47,13 +47,14 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Five of them
+two extension matrices in device memory above k = 96).  Three of them
 compute the base extensions as exact 32-bit integer dot products per
 warp; miller_loop, ladder_loop, pow_loop, fp2_pow_loop, dual_ladder,
-dbl_step, add_step and pow_step run blocks of G lanes whose warps compute
-them together on the tensor cores, from the u8 planes of the extension
-matrices (`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what bounds them
-and why.  They agree with the plain versions bit for bit.
+dbl_step, add_step, pt_dbl, pt_add and pow_step run blocks of G lanes
+whose warps compute them together on the tensor cores, from the u8
+planes of the extension matrices (`tc_planes`).  csrc/rns.cuh and
+csrc/rns_tc.cuh say what bounds them and why.  They agree with the plain
+versions bit for bit.
 """
 
 from __future__ import annotations
@@ -675,9 +676,9 @@ window_ladder.launches = 0
 def _step_launch(wrapper, entry: str, rns: RNSCtx, ins, n_out: int,
                  *scalars, tc: bool = False):
     """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n);
-    tc: a tensor-core kernel (dbl_step, add_step, pow_step), which takes
-    the matrix planes after the blob.  A wrapper with a `launches_by_n` dict also
-    counts its launches per N there."""
+    tc: a tensor-core kernel (dbl_step, add_step, pt_dbl, pt_add,
+    pow_step), which takes the matrix planes after the blob.  A wrapper
+    with a `launches_by_n` dict also counts its launches per N there."""
     n = _check_state(rns, *ins)
     outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
     if n:
@@ -739,13 +740,16 @@ def pt_dbl_plain(rns: RNSCtx, X, Y, Z):
 
 
 def pt_dbl(rns: RNSCtx, X, Y, Z):
-    """Wrapper: one Jacobian doubling as one kernel on the card."""
+    """Wrapper: one Jacobian doubling as one kernel on the card, blocks of
+    lanes whose base extensions run on the tensor cores (as dbl_step's);
+    every argument [2k, N].  `launches_by_n` splits the launches by N."""
     if _is_cpu(X):
         return pt_dbl_plain(rns, X, Y, Z)
-    return _step_launch(pt_dbl, "bgn_pt_dbl", rns, (X, Y, Z), 3)
+    return _step_launch(pt_dbl, "bgn_pt_dbl", rns, (X, Y, Z), 3, tc=True)
 
 
 pt_dbl.launches = 0
+pt_dbl.launches_by_n = {}
 
 
 def pt_add_plain(rns: RNSCtx, X, Y, Z, ax, ay):
@@ -755,13 +759,18 @@ def pt_add_plain(rns: RNSCtx, X, Y, Z, ax, ay):
 
 
 def pt_add(rns: RNSCtx, X, Y, Z, ax, ay):
-    """Wrapper: one mixed addition as one kernel on the card."""
+    """Wrapper: one mixed addition as one kernel on the card, blocks of
+    lanes whose base extensions run on the tensor cores (as dbl_step's),
+    added for every lane; every argument [2k, N].  `launches_by_n` splits
+    the launches by N."""
     if _is_cpu(X):
         return pt_add_plain(rns, X, Y, Z, ax, ay)
-    return _step_launch(pt_add, "bgn_pt_add", rns, (X, Y, Z, ax, ay), 3)
+    return _step_launch(pt_add, "bgn_pt_add", rns, (X, Y, Z, ax, ay), 3,
+                        tc=True)
 
 
 pt_add.launches = 0
+pt_add.launches_by_n = {}
 
 
 def pow_step_plain(rns: RNSCtx, acc, x, bit: int):

@@ -17,17 +17,19 @@ Phases, each of which raises on failure (the script then exits nonzero):
      32 words, G threads per lane, and the loop form for any other L);
      the count of
      tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
-     pow_loop, fp2_pow_loop, dual_ladder, dbl_step, add_step and pow_step
-     kernels (blocks of G lanes, base extensions on the tensor cores:
-     csrc/rns_tc.cuh) for each S, which must be > 0, and their shared
-     memory per block;
+     pow_loop, fp2_pow_loop, dual_ladder, dbl_step, add_step, pt_dbl,
+     pt_add and pow_step kernels (blocks of G lanes, base extensions on
+     the tensor cores: csrc/rns_tc.cuh) for each S, which must be > 0,
+     and their shared memory per block;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
-     N = batch, dbl_step and add_step also at N = batch - 1,
-     decrypt-batch and 1, pow_step also at N = batch - 1, decrypt-batch,
-     7 and 1, ragged and short blocks of G lanes, at every key size;
+     N = batch, dbl_step, add_step, pt_dbl and pt_add also at
+     N = batch - 1, decrypt-batch and 1, pow_step also at N = batch - 1,
+     decrypt-batch, 7 and 1, ragged and short blocks of G lanes, at every
+     key size; pt_add also from a window chain's start state (X = Y = 0,
+     Z = one) and both G1 steps on identity-base lanes;
      dual_ladder at N = batch, batch - 1 and 1, its first lanes m = 0,
      r = 0, m < 0 and the identity m = r = 0, whose Z must be 0;
      miller_loop also at N = batch - 3 and N = 1, a ragged last block; ladder_loop with three identity-base
@@ -103,9 +105,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      limb-mode outputs on the same inputs, every lane decrypted, no RNS
      kernel launched;
   5. one call of each op under torch.profiler (the re-randomized Mult and
-     L2 Add, the step-mode Mult and Encrypt, and the limb-mode Mult and
-     Encrypt included): device busy time, idle share, the costliest
-     device kernels, the wrappers' launches and the host's
+     L2 Add, the step-mode Mult, Encrypt and L1 decrypt, and the
+     limb-mode Mult and Encrypt included): device busy time, idle share,
+     the costliest device kernels, the wrappers' launches and the host's
      cudaFuncSetAttribute and cudaLaunchKernel calls; then the host
      microseconds per launch of each step wrapper at N = 1 (the median of
      seven rounds of 40 launches).
@@ -490,13 +492,15 @@ def main() -> None:
             "shared memory per block")
     for k_ in (45, 90, 185):
         S_ = cuda_rns.slots_for(k_)
-        log(f"  k = {k_}: dual_ladder, dbl_step, add_step, pow_step "
-            "(blocks of G lanes, the rns_tc.cuh layout of miller_loop): "
+        log(f"  k = {k_}: dual_ladder, dbl_step, add_step, pt_dbl, "
+            "pt_add, pow_step (blocks of G lanes, the rns_tc.cuh layout "
+            "of miller_loop): "
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
     imma = {}
     for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
-                 "dual_ladder", "dbl_step", "add_step", "pow_step"):
+                 "dual_ladder", "dbl_step", "add_step", "pt_dbl", "pt_add",
+                 "pow_step"):
         imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
                                  _build._nvcc(), "IMMA")
         log(f"  IMMA (tensor-core) instructions in the SASS of "
@@ -576,13 +580,13 @@ def main() -> None:
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder (also at B - 1 and 1), miller_loop, window_ladder_tab,
         window_ladder at B lanes, ladder_loop and fp2_pow_loop (q1) at Bd,
-        pow_loop at B and 1; the step kernels at B (dbl_step and add_step
-        also at B - 1, Bd and 1, pow_step at B - 1, Bd, 7 and 1, pt_dbl,
-        pt_add and fp2_pow_step at Bd), and a chain of step launches
-        against each
-        loop kernel.  trunc: cut every digit string to its first trunc
-        digits and the random exponents to trunc bits (the plain versions
-        then stay short)."""
+        pow_loop at B and 1; the step kernels at B (dbl_step, add_step,
+        pt_dbl and pt_add also at B - 1, Bd and 1, pow_step at B - 1, Bd,
+        7 and 1, fp2_pow_step at Bd; pt_add also from a window chain's
+        start, pt_dbl and pt_add at Bd on identity-base lanes), and a
+        chain of step launches against each loop kernel.  trunc: cut
+        every digit string to its first trunc digits and the random
+        exponents to trunc bits (the plain versions then stay short)."""
         ctx, rns, dk = pk.dev.ctx, pk.dev.rns, pk.dev
         k, key_bits = rns.k, pk.key_bits
         state = 2 * k * f32                # bytes of one residue element
@@ -785,38 +789,49 @@ def main() -> None:
 
         # the six step kernels, one launch each, at the shapes of the
         # per-step configuration: Miller steps at B (state: the dual
-        # ladder's point and the Miller value; also at Bd, as MakeL2 runs
-        # them), the G1 steps at B (the window chains) and Bd (the decrypt
-        # ladder), pow_step at B, Bd and 1, fp2_pow_step at B and Bd, both
-        # with bit 1 and 0; dbl_step, add_step and pow_step also at
-        # ragged and short blocks of G lanes
+        # ladder's point, lane IDENT the identity, and the Miller value;
+        # also at Bd, as MakeL2 runs them), the G1 steps on the same point
+        # at B (the window chains) and Bd (the decrypt ladder), pow_step
+        # at B, Bd and 1, fp2_pow_step at B and Bd, both with bit 1 and 0;
+        # dbl_step, add_step, pt_dbl, pt_add and pow_step also at ragged
+        # and short blocks of G lanes
         blob = cuda_rns.blob_layout(k)["words"] * f32
         st = tuple(v.contiguous() for v in (X, Y, Z, fr, fi))
-        for name, ins, counts, rows, lanes in (
-                ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12,
-                 (B, B - 1, Bd, 1)),
-                ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14,
-                 (B, B - 1, Bd, 1))):
+
+        def step_check(name, ins, counts, rows, n, label=""):
             e, mm = ops_of(k, counts)
-            for n in dict.fromkeys(lanes):
-                a_n = tuple(v[:, :n].contiguous() for v in ins)
-                check(name, f"N={n}",
-                      lambda f=getattr(cuda_rns, name), a=a_n: f(rns, *a),
-                      lambda f=getattr(cuda_rns, name + "_plain"), a=a_n:
-                          f(rns, *a),
-                      (n * e, n * mm), rows * n * state + blob, key_bits)
-        for n in dict.fromkeys((B, Bd)):
-            p3 = tuple(v[:, :n].contiguous() for v in st[:3])
-            a2 = (ax[:, :n].contiguous(), ay[:, :n].contiguous())
-            for name, ins, counts, rows in (
-                    ("pt_dbl", p3, {"dbl_pt": 1}, 6),
-                    ("pt_add", p3 + a2, {"add_pt": 1}, 8)):
-                e, mm = ops_of(k, counts)
-                check(name, f"N={n}",
-                      lambda f=getattr(cuda_rns, name), a=ins: f(rns, *a),
-                      lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
-                          f(rns, *a),
-                      (n * e, n * mm), rows * n * state + blob, key_bits)
+            check(name, f"N={n}{label}",
+                  lambda f=getattr(cuda_rns, name), a=ins: f(rns, *a),
+                  lambda f=getattr(cuda_rns, name + "_plain"), a=ins:
+                      f(rns, *a),
+                  (n * e, n * mm), rows * n * state + blob, key_bits)
+
+        for name, ins, counts, rows in (
+                ("dbl_step", st + (xb, yb), {"dbl_step": 1}, 12),
+                ("add_step", st + (ax, ay, xb, yb), {"add_step": 1}, 14),
+                ("pt_dbl", st[:3], {"dbl_pt": 1}, 6),
+                ("pt_add", st[:3] + (ax, ay), {"add_pt": 1}, 8)):
+            for n in dict.fromkeys((B, B - 1, Bd, 1)):
+                step_check(name, tuple(v[:, :n].contiguous() for v in ins),
+                           counts, rows, n)
+        # the G1 steps at each path's own input kind: a window chain's
+        # first addition (_window_chain: X = Y = 0, Z = one, and window
+        # 0's gathered rows, row 0 where the digit is 0) and the decrypt
+        # ladder's first doubling and addition from ladder_loop's input
+        # (its identity-base lanes on zero residues)
+        wx, wy = (g[0].contiguous() for g in cuda_rns._gather_rows(
+            dk.p_win, dgt[:1]))
+        one_b = rns.one_rns.expand_as(wx).contiguous()
+        zero_b = torch.zeros_like(one_b)
+        step_check("pt_add", (zero_b, zero_b, one_b, wx, wy),
+                   {"add_pt": 1}, 8, B, ", window-chain start")
+        del wx, wy, one_b, zero_b
+        step_check("pt_dbl", (cx, cy, one), {"dbl_pt": 1}, 6, Bd,
+                   f", identity-base lanes {ident}")
+        step_check("pt_add", tuple(v.contiguous() for v in
+                                   cuda_rns.pt_dbl_plain(rns, cx, cy, one))
+                   + (cx, cy), {"add_pt": 1}, 8, Bd,
+                   f", identity-base lanes {ident}")
         for n in dict.fromkeys((B, B - 1, Bd, 7, 1)):
             for bit in (1, 0):
                 ins = (aa.v[:, :n].contiguous(), norm[:, :n].contiguous(),
@@ -1521,6 +1536,8 @@ def main() -> None:
                       ("Add", lambda: pk.add(a, b)),
                       ("Decrypt (L1)", lambda: sk.decrypt(ct1[:Bd], pk,
                                                           tables)),
+                      ("step-mode Decrypt (L1)", lambda: in_step_mode(
+                          lambda: sk.decrypt(ct1[:Bd], pk, tables))),
                       ("Mult (re-randomized)",
                        lambda: pkr.mult(ar, br, rng=random.Random(13))),
                       ("L2 Add (re-randomized)",

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
-fp2_pow_loop.cu, the two digit-domain Miller step kernels, the three
-tensor-core step kernels (dbl_step.cu, add_step.cu, pow_step.cu) and
-dual_ladder.cu on one CUDA card.
+fp2_pow_loop.cu, the two digit-domain Miller step kernels, the five
+tensor-core step kernels (dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu,
+pow_step.cu) and dual_ladder.cu on one CUDA card.
 
     python3 scripts/kernel_variants.py [--kernels mont ladder pow digits
                                         step encrypt]
@@ -38,12 +38,14 @@ chip_smoke.py), two turns in opposite orders:
     per block (digits.cuh BGN_DIGITS_THREADS) 64, 128 and 256 at the G
     that was fastest for each kernel and L, over random canonical digits
     modulo random primes of 512 and 1000 bits;
-  - dbl_step.cu, add_step.cu and pow_step.cu (--kernels step): the
-    shipped build at N = 1, 7, 8191 and 8192 (k = 45-47), 1, 512 and 8192
-    (k = 90-92) and 1 and 16 (k = 184-186), pow_step at bit 1 and bit 0,
-    and the blocks per SM that __launch_bounds__ asks at S = 4 and S = 6
-    (rns_tc.cuh TcLanes<S> for dbl_step and add_step, TcPow<S> for
-    pow_step, both set alike in the three sources' builds) at N = 8192
+  - dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu and pow_step.cu
+    (--kernels step): the shipped build at N = 1, 7, 2048, 8191 and 8192
+    (k = 45-47), 1, 512 and 8192 (k = 90-92) and 1 and 16 (k = 184-186),
+    pow_step at bit 1 and bit 0, and the blocks per SM that
+    __launch_bounds__ asks at S = 4 and S = 6 (rns_tc.cuh TcLanes<S> for
+    dbl_step, add_step and pt_add, TcLadder<S> for pt_dbl, TcPow<S> for
+    pow_step, all set alike in the five sources' builds) at N = 2048 and
+    8192
     (k = 45-47) and N = 512 and 8192 (k = 90-92), over random residues
     modulo random primes;
   - dual_ladder.cu (--kernels encrypt): the blocks per SM that its
@@ -96,16 +98,20 @@ DIGIT_THREADS = (64, 128, 256)
 # (kernel, L, lanes, prime bits) timed
 DIGIT_SHAPES = [(kind, L, n, bits) for kind in ("dbl", "add")
                 for L, n, bits in ((34, 8192, 512), (64, 512, 1000))]
-STEP_SOURCES = ["dbl_step.cu", "add_step.cu", "pow_step.cu"]
-# blocks per SM of both step kernels (at S = 4, at S = 6); the shipped
-# policy is timed as "shipped"
-STEP_BLOCKS = [(1, 1), (2, 2), (3, 3), (5, 1)]
-# the policies of dbl_step (the Miller kernel's) and pow_step (pow_loop's)
-STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Pow) \{\n(?:  static constexpr "
+STEP_SOURCES = ["dbl_step.cu", "add_step.cu", "pt_dbl.cu", "pt_add.cu",
+                "pow_step.cu"]
+# blocks per SM of the step kernels (at S = 4, at S = 6); the shipped
+# policy is timed as "shipped" ((4, 1): TcLanes', shipped by all but
+# pt_dbl)
+STEP_BLOCKS = [(1, 1), (2, 2), (3, 3), (4, 1), (5, 1)]
+# the policies of dbl_step, add_step and pt_add (the Miller kernel's),
+# pt_dbl (ladder_loop's) and pow_step (pow_loop's)
+STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Ladder|Pow) \{\n(?:  static "
+                         r"constexpr "
                          r"int G = \d+;\n)?  static constexpr int min_blocks "
                          r"= )[^;]*;")
 # (prime bits, lanes timed, lanes on which the variants are timed)
-STEP_SHAPES = ((528, (1, 7, 8191, 8192), (8192,)),
+STEP_SHAPES = ((528, (1, 7, 2048, 8191, 8192), (2048, 8192)),
                (1056, (1, 512, 8192), (512, 8192)),
                (2080, (1, 16), ()))
 # dual_ladder.cu's __launch_bounds__ and its blocks per SM (at S = 4, at
@@ -247,8 +253,8 @@ def main() -> None:
         if r["kernel"].startswith(("mont_", "ladder_loop", "pow_loop",
                                    "fp2_pow_loop", "miller_dbl_digits",
                                    "miller_add_digits", "dbl_step",
-                                   "add_step", "pow_step",
-                                   "dual_ladder")):
+                                   "add_step", "pt_dbl", "pt_add",
+                                   "pow_step", "dual_ladder")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -410,6 +416,11 @@ def main() -> None:
                 jobs.append((f"add_step k={rns.k} N={n}", names,
                              lambda r=rns, a=a9: cuda_rns.add_step(r, *a),
                              cuda_rns.add_step_plain(rns, *a9)))
+                for kern, a in (("pt_dbl", st[:3]), ("pt_add", st[:5])):
+                    jobs.append((f"{kern} k={rns.k} N={n}", names,
+                                 lambda r=rns, a=a, f=getattr(cuda_rns, kern):
+                                     f(r, *a),
+                                 getattr(cuda_rns, kern + "_plain")(rns, *a)))
                 for bit in (1, 0):
                     a = (st[0], st[1], bit)
                     jobs.append((f"pow_step k={rns.k} N={n} bit={bit}",

@@ -1,12 +1,13 @@
-"""csrc/dbl_step.cu, csrc/add_step.cu, csrc/pow_step.cu and
-csrc/dual_ladder.cu on the tensor-core block product, held on the CPU
-without JAX: chains of dbl_step_plain and add_step_plain launches with
-every product's extension sums routed through test_torch_tc_ext.py's
-integer emulation of rns_tc.cuh's block product, over n lanes padded to
-whole blocks of G with the zero inputs the kernels give lanes past n
-(n = 1: seven of eight warps on zeros; n = 13: a short last block), equal
-to the plain steps at every step (pow_step's chain is one of
-test_torch_pow_tc.py's, dual_ladder's test_torch_dual_tc.py's).  The four
+"""csrc/dbl_step.cu, csrc/add_step.cu, csrc/pt_dbl.cu, csrc/pt_add.cu,
+csrc/pow_step.cu and csrc/dual_ladder.cu on the tensor-core block
+product, held on the CPU without JAX: chains of dbl_step_plain,
+add_step_plain, pt_dbl_plain and pt_add_plain launches with every
+product's extension sums routed through test_torch_tc_ext.py's integer
+emulation of rns_tc.cuh's block product, over n lanes padded to whole
+blocks of G with the zero inputs the kernels give lanes past n (n = 1:
+seven of eight warps on zeros; n = 13: a short last block), equal to the
+plain steps at every step (pow_step's chain is one of
+test_torch_pow_tc.py's, dual_ladder's test_torch_dual_tc.py's).  The six
 sources, and the compute-then-select window chain of rns.cuh that
 dual_ladder.cu runs, are read for the deadlock of a block-wide product (a
 warp that returns, continues or breaks before the kernel's last product
@@ -33,6 +34,10 @@ KERNELS = {
                  r"dbl_step<S, MulTc<S>>\(", "bgn_dbl_step"),
     "add_step": ("add_step.cu", "bgn_add_step_kernel",
                  r"add_step<S, MulTc<S>>\(", "bgn_add_step"),
+    "pt_dbl": ("pt_dbl.cu", "bgn_pt_dbl_kernel", r"dbl_pt<S, MulTc<S>>\(",
+               "bgn_pt_dbl"),
+    "pt_add": ("pt_add.cu", "bgn_pt_add_kernel", r"add_pt<S, MulTc<S>>\(",
+               "bgn_pt_add"),
     "pow_step": ("pow_step.cu", "bgn_pow_step_kernel", r"MulTc<S>::mul\(",
                  "bgn_pow_step"),
     "dual_ladder": ("dual_ladder.cu", "bgn_dual_ladder_kernel",
@@ -51,32 +56,39 @@ def ctx(request):
     return tce._ctx(request.param)
 
 
-def _two_steps(step, ctx, X, Y, Z, fr, fi, *points):
-    """Two Miller steps of one kind (step: dbl_step_plain with points
-    (xb, yb), add_step_plain with (ax, ay, xb, yb)), as _miller_chain
-    launches them; the outputs of each step."""
+def _two_steps(step, ctx, n_state, *ins):
+    """Two steps of one kind, as the host loops launch them: the first
+    n_state inputs are the state, carried from step to step (Miller
+    steps: X, Y, Z, fr, fi; G1 steps: X, Y, Z), the rest the step's fixed
+    points (dbl_step_plain: xb, yb; add_step_plain: ax, ay, xb, yb;
+    pt_add_plain: ax, ay); the outputs of each step."""
+    state, points = tuple(ins[:n_state]), ins[n_state:]
     outs = []
     for _ in range(2):
-        X, Y, Z, fr, fi = step(ctx, X, Y, Z, fr, fi, *points)
-        outs.append((X, Y, Z, fr, fi))
+        state = step(ctx, *state, *points)
+        outs.append(state)
     return outs
 
 
-def _steps_on_the_block_product(ctx, n, monkeypatch, step, nin, seed):
-    """nin random inputs < p on n lanes, padded to whole blocks of G with
-    zero lanes, two steps on the emulated block product against the
-    unpadded plain steps, bit for bit at each step."""
-    ins = [tpc._values(ctx, n, seed + i) for i in range(nin)]
-    want = _two_steps(step, ctx, *ins)
+def _steps_on_the_block_product(ctx, n, monkeypatch, step, ins, n_state):
+    """The inputs ins on n lanes, padded to whole blocks of G with zero
+    lanes, two steps on the emulated block product against the unpadded
+    plain steps, bit for bit at each step."""
+    want = _two_steps(step, ctx, n_state, *ins)
     width = -(-n // G) * G
     pad = [torch.cat([v, v.new_zeros(v.shape[0], width - n)], dim=1)
            for v in ins]
     monkeypatch.setattr(trn, "_ext_dot", tpc._routed_ext_dot(
         ctx, lambda mat, q: tpc._tc_sums(ctx, mat, q)))
-    got = _two_steps(step, ctx, *pad)
+    got = _two_steps(step, ctx, n_state, *pad)
     assert len(got) == len(want) == 2
     for g_step, w_step in zip(got, want):
         assert all(torch.equal(g[:, :n], w) for g, w in zip(g_step, w_step))
+
+
+def _random_inputs(ctx, n, nin, seed):
+    """nin random residue arrays of values < p on n lanes."""
+    return [tpc._values(ctx, n, seed + i) for i in range(nin)]
 
 
 @pytest.mark.parametrize("n", [1, 13])
@@ -87,7 +99,7 @@ def test_steps_on_the_block_product(ctx, n, monkeypatch):
     bit for bit (from random X, Y, Z, f < p, then the state bounds 27p,
     6p, 9p after the first step)."""
     _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.dbl_step_plain,
-                                7, 3 * ctx.k)
+                                _random_inputs(ctx, n, 7, 3 * ctx.k), 5)
 
 
 @pytest.mark.parametrize("n", [1, 13])
@@ -97,7 +109,35 @@ def test_add_steps_on_the_block_product(ctx, n, monkeypatch):
     unpadded plain step's bit for bit (from random X, Y, Z, f, A, B < p,
     then the Miller state's bounds after the first step)."""
     _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.add_step_plain,
-                                9, 5 * ctx.k)
+                                _random_inputs(ctx, n, 9, 5 * ctx.k), 5)
+
+
+@pytest.mark.parametrize("n", [1, 13])
+def test_pt_dbl_on_the_block_product(ctx, n, monkeypatch):
+    """pt_dbl.cu's design, as for dbl_step: the zeros pt_dbl.cu loads for
+    lanes past n, two doublings in a row as _ladder_chain launches them
+    for a zero digit, each one's n lanes equal to the unpadded plain
+    doubling's bit for bit (from random X, Y, Z < p, then the ladder
+    state's bounds (27, 27, 6))."""
+    _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.pt_dbl_plain,
+                                _random_inputs(ctx, n, 3, 7 * ctx.k), 3)
+
+
+@pytest.mark.parametrize("n", [1, 13])
+@pytest.mark.parametrize("start", ["random", "window-chain start"])
+def test_pt_add_on_the_block_product(ctx, start, n, monkeypatch):
+    """pt_add.cu's design: the zeros pt_add.cu loads for lanes past n (all
+    five inputs), two additions of a random A < p in a row as
+    _window_chain launches them, each one's n lanes equal to the
+    unpadded plain addition's bit for bit; from random X, Y, Z < p, or
+    from the state of a window chain's lane that has not started
+    (X = Y = 0, Z = one)."""
+    ins = _random_inputs(ctx, n, 5, 11 * ctx.k)
+    if start != "random":
+        ins[:3] = [torch.zeros_like(ins[0]), torch.zeros_like(ins[0]),
+                   ctx.one_rns.expand(-1, n).contiguous()]
+    _steps_on_the_block_product(ctx, n, monkeypatch, cuda_rns.pt_add_plain,
+                                ins, 3)
 
 
 def _source(name: str) -> str:
