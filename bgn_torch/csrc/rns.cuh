@@ -59,12 +59,11 @@
 // agree bit for bit.  Above k = 192 there is no instantiation (a key with
 // more channels takes the limb path: scheme._make_rns).
 //
-// The product r_mul_v below is the one every RNS kernel runs except
-// eight: miller_loop.cu, ladder_loop.cu, pow_loop.cu, fp2_pow_loop.cu,
-// dual_ladder.cu, dbl_step.cu, add_step.cu and pow_step.cu run the
-// block-wide tensor-core product of rns_tc.cuh, all but the two power
-// kernels' products through the product policy of the step functions
-// (dbl_step, add_step; dbl_pt, add_pt, jac_add_full; fp2_sqr, fp2_mul).
+// The product r_mul_v below is the one window_ladder.cu runs (through
+// win_chain); the twelve other RNS kernels run the block-wide
+// tensor-core product of rns_tc.cuh, all but pow_loop's and pow_step's
+// products through the product policy of the step functions (dbl_step,
+// add_step; dbl_pt, add_pt, jac_add_full; fp2_sqr, fp2_mul).
 // What bounds each on the H100 is written there.
 #pragma once
 
@@ -434,9 +433,8 @@ static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
 
 // The product policy of the step functions (dbl_step, add_step, dbl_pt,
 // add_pt, jac_add_full, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
-// r_mul_v, one warp per lane; miller_loop.cu, ladder_loop.cu,
-// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu and add_step.cu pass the
-// block-wide product of rns_tc.cuh.
+// r_mul_v, one warp per lane, which window_ladder.cu runs; every other
+// kernel that calls them passes the block-wide product of rns_tc.cuh.
 template <int S>
 struct MulWarp {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
@@ -645,7 +643,8 @@ static __device__ __forceinline__ void win_step(const RnsConsts& c, Fe<S>& X,
   }
 }
 
-// One window chain over windows [j0, j1) of per-lane `digits` ([Jt, n]),
+// One window chain over windows [j0, j1) of per-lane `digits` ([Jt, n])
+// (window_ladder.cu, on r_mul_v: a warp skips its dead windows),
 // row d of window j read from the tables tx/ty [J, R, 2k] at
 // ((j - j0) * R + d) * 2k (one contiguous run per row); returns whether a
 // window was live (digit != 0; row 0 is the identity).
@@ -670,9 +669,10 @@ static __device__ __forceinline__ bool win_chain(const RnsConsts& c,
 }
 
 // The window chain of win_chain computed for every lane and selected, as
-// the TPU kernel (_dual_ladder_kernel) and the plain version
-// (ops/cuda_rns.py _window_chain) run it, so that every warp of a block
-// runs the same products (Mul: the block-wide product of rns_tc.cuh).
+// the TPU kernels (_dual_ladder_kernel, _win_ladder_tab_kernel) and the
+// plain version (ops/cuda_rns.py _window_chain) run it, so that every
+// warp of a block runs the same products (Mul: the block-wide product of
+// rns_tc.cuh; dual_ladder.cu and window_ladder_tab.cu).
 // At every window each warp gathers its lane's row d (a dead window,
 // d = 0, and a lane >= n, which reads no digit, gather row 0: residues
 // of 0) and adds it to the accumulator (add_pt, 11 products); then a

@@ -1,8 +1,9 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
 // the product miller_loop.cu, ladder_loop.cu, pow_loop.cu,
-// fp2_pow_loop.cu, dual_ladder.cu, dbl_step.cu, add_step.cu, pt_dbl.cu,
-// pt_add.cu and pow_step.cu run.  The other RNS kernels keep r_mul_v.
+// fp2_pow_loop.cu, dual_ladder.cu, window_ladder_tab.cu, dbl_step.cu,
+// add_step.cu, pt_dbl.cu, pt_add.cu, pow_step.cu and fp2_pow_step.cu run.
+// The other RNS kernel, window_ladder.cu, keeps r_mul_v.
 //
 // What bounds the warp product r_mul_v on the H100: instruction issue.
 // Its two base extensions are matrix-vector products that it runs one
@@ -49,8 +50,9 @@
 // Lanes >= n of the last block run on zeros and store nothing, so every
 // warp of the block reaches every barrier; the Miller and ladder digits
 // are shared by all lanes, so all warps run the same sequence of
-// products, and the dual ladder's per-lane window digits pick among
-// additions computed for every lane (rns.cuh win_chain_sel).
+// products, and the window chains' per-lane digits (dual_ladder.cu,
+// window_ladder_tab.cu) pick among additions computed for every lane
+// (rns.cuh win_chain_sel).
 #pragma once
 
 #include "rns.cuh"
@@ -66,10 +68,10 @@
 // Miller loop per launch, takes the same caps: at S = 4, N = 8192 four
 // blocks beat one to three and five, at S = 6 one block is best at the
 // 1024-bit key's batches (PERF.md §6, the step sweep); so do add_step.cu,
-// one addition per launch, dual_ladder.cu (the encrypt sweep) and
-// pt_add.cu (at N = 8192, Encrypt's window chains, four blocks beat one
-// to three and five by 8-24 %; at the decrypt's 2048 one or two blocks
-// win by 8 %, less in all than Encrypt loses).
+// one addition per launch, dual_ladder.cu and window_ladder_tab.cu (the
+// encrypt sweep) and pt_add.cu (at N = 8192, Encrypt's window chains,
+// four blocks beat one to three and five by 8-24 %; at the decrypt's 2048
+// one or two blocks win by 8 %, less in all than Encrypt loses).
 template <int S>
 struct TcLanes {
   static constexpr int G = 8;
@@ -99,7 +101,9 @@ struct TcLadder {
 // blocks) is best at two blocks, at S = 4 (112 registers; three or four
 // spill) and at S = 6 (128 registers against 133 at one block, so two
 // blocks fit an SM: 1.10 against 1.90 ms).  pow_loop at S = 6 is the same
-// at every cap.  pow_step.cu, one square-and-multiply per launch, takes
+// at every cap.  fp2_pow_step.cu, one digit of fp2_pow_loop per launch,
+// takes TcFp2Pow too: at N = 2048 two blocks beat four (PERF.md §6, the
+// step sweep).  pow_step.cu, one square-and-multiply per launch, takes
 // TcPow too: at S = 4, N = 8192 four blocks beat one to three and five
 // (PERF.md §6, the step sweep).
 template <int S>
@@ -314,9 +318,10 @@ static __device__ __noinline__ Fe<S> r_mul_tc(const int k, const Fe<S> x,
 }
 
 // The product policy that runs r_mul_tc: of the step functions (dbl_step,
-// add_step, dbl_pt, add_pt) in miller_loop.cu, ladder_loop.cu,
-// dbl_step.cu and add_step.cu, of add_pt and jac_add_full in
-// dual_ladder.cu, and of fp2_sqr / fp2_mul in fp2_pow_loop.cu.
+// add_step, dbl_pt, add_pt) in miller_loop.cu, ladder_loop.cu and the
+// step kernels, of add_pt and jac_add_full in dual_ladder.cu and
+// window_ladder_tab.cu, and of fp2_sqr / fp2_mul in fp2_pow_loop.cu and
+// fp2_pow_step.cu.
 template <int S>
 struct MulTc {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,

@@ -47,12 +47,11 @@ ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
 memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  Three of them
-compute the base extensions as exact 32-bit integer dot products per
-warp; miller_loop, ladder_loop, pow_loop, fp2_pow_loop, dual_ladder,
-dbl_step, add_step, pt_dbl, pt_add and pow_step run blocks of G lanes
-whose warps compute them together on the tensor cores, from the u8
-planes of the extension matrices (`tc_planes`).  csrc/rns.cuh and
+two extension matrices in device memory above k = 96).  One of them,
+window_ladder, computes the base extensions as exact 32-bit integer dot
+products per warp; the other twelve run blocks of G lanes whose warps
+compute them together on the tensor cores, from the u8 planes of the
+extension matrices (`tc_planes`).  csrc/rns.cuh and
 csrc/rns_tc.cuh say what bounds them and why.  They agree with the plain
 versions bit for bit.
 """
@@ -609,7 +608,11 @@ def window_ladder_tab_plain(rns: RNSCtx, tab, digits):
 
 def window_ladder_tab(rns: RNSCtx, tab, digits):
     """Wrapper: the chain with in-kernel row reads, one kernel on the
-    card.  tab: (x, y) [J, R, 2k]; digits: [Jd, N], Jd <= J."""
+    card, blocks of lanes whose base extensions run on the tensor cores
+    (as dual_ladder's), every window's addition computed for every lane
+    and selected, as window_ladder_tab_plain does.  tab: (x, y)
+    [J, R, 2k]; digits: [Jd, N], Jd <= J.  `launches_by_n` and
+    `launches_by_jd` split the launches by N and by Jd."""
     tx = tab[0]
     if _is_cpu(tx):
         return window_ladder_tab_plain(rns, tab, digits)
@@ -622,14 +625,19 @@ def window_ladder_tab(rns: RNSCtx, tab, digits):
     X = torch.empty((2 * rns.k, n), dtype=torch.float32, device=tx.device)
     Y, Z = torch.empty_like(X), torch.empty_like(X)
     if n:
-        _launch("bgn_window_ladder_tab", _ptr(const_blob(rns)), rns.k, S,
-                _ptr(tab[0]), _ptr(tab[1]), R, Jd, _ptr(dg), _ptr(X),
-                _ptr(Y), _ptr(Z), n)
+        _launch("bgn_window_ladder_tab", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, S, _ptr(tab[0]), _ptr(tab[1]),
+                R, Jd, _ptr(dg), _ptr(X), _ptr(Y), _ptr(Z), n)
         window_ladder_tab.launches += 1
+        for by, key in ((window_ladder_tab.launches_by_n, n),
+                        (window_ladder_tab.launches_by_jd, Jd)):
+            by[key] = by.get(key, 0) + 1
     return X, Y, Z
 
 
 window_ladder_tab.launches = 0
+window_ladder_tab.launches_by_n = {}
+window_ladder_tab.launches_by_jd = {}
 
 
 # ---------------------------------------------------------------------------
@@ -674,16 +682,14 @@ window_ladder.launches = 0
 
 
 def _step_launch(wrapper, entry: str, rns: RNSCtx, ins, n_out: int,
-                 *scalars, tc: bool = False):
-    """Launch a step kernel: (blob, k, S, inputs, scalars, outputs, n);
-    tc: a tensor-core kernel (dbl_step, add_step, pt_dbl, pt_add,
-    pow_step), which takes the matrix planes after the blob.  A wrapper
-    with a `launches_by_n` dict also counts its launches per N there."""
+                 *scalars):
+    """Launch a step kernel: (blob, planes, k, S, inputs, scalars,
+    outputs, n), every one a tensor-core kernel.  A wrapper with a
+    `launches_by_n` dict also counts its launches per N there."""
     n = _check_state(rns, *ins)
     outs = tuple(torch.empty_like(ins[0]) for _ in range(n_out))
     if n:
-        planes = (_ptr(tc_planes(rns)),) if tc else ()
-        _launch(entry, _ptr(const_blob(rns)), *planes, rns.k,
+        _launch(entry, _ptr(const_blob(rns)), _ptr(tc_planes(rns)), rns.k,
                 slots_for(rns.k), *(_ptr(t) for t in ins), *scalars,
                 *(_ptr(t) for t in outs), n)
         wrapper.launches += 1
@@ -706,7 +712,7 @@ def dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
     if _is_cpu(X):
         return dbl_step_plain(rns, X, Y, Z, fr, fi, xb, yb)
     return _step_launch(dbl_step, "bgn_dbl_step", rns,
-                        (X, Y, Z, fr, fi, xb, yb), 5, tc=True)
+                        (X, Y, Z, fr, fi, xb, yb), 5)
 
 
 dbl_step.launches = 0
@@ -727,7 +733,7 @@ def add_step(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
     if _is_cpu(X):
         return add_step_plain(rns, X, Y, Z, fr, fi, ax, ay, xb, yb)
     return _step_launch(add_step, "bgn_add_step", rns,
-                        (X, Y, Z, fr, fi, ax, ay, xb, yb), 5, tc=True)
+                        (X, Y, Z, fr, fi, ax, ay, xb, yb), 5)
 
 
 add_step.launches = 0
@@ -745,7 +751,7 @@ def pt_dbl(rns: RNSCtx, X, Y, Z):
     every argument [2k, N].  `launches_by_n` splits the launches by N."""
     if _is_cpu(X):
         return pt_dbl_plain(rns, X, Y, Z)
-    return _step_launch(pt_dbl, "bgn_pt_dbl", rns, (X, Y, Z), 3, tc=True)
+    return _step_launch(pt_dbl, "bgn_pt_dbl", rns, (X, Y, Z), 3)
 
 
 pt_dbl.launches = 0
@@ -765,8 +771,7 @@ def pt_add(rns: RNSCtx, X, Y, Z, ax, ay):
     the launches by N."""
     if _is_cpu(X):
         return pt_add_plain(rns, X, Y, Z, ax, ay)
-    return _step_launch(pt_add, "bgn_pt_add", rns, (X, Y, Z, ax, ay), 3,
-                        tc=True)
+    return _step_launch(pt_add, "bgn_pt_add", rns, (X, Y, Z, ax, ay), 3)
 
 
 pt_add.launches = 0
@@ -788,7 +793,7 @@ def pow_step(rns: RNSCtx, acc, x, bit: int):
     if _is_cpu(acc):
         return pow_step_plain(rns, acc, x, bit)
     return _step_launch(pow_step, "bgn_pow_step", rns, (acc, x), 1,
-                        int(bit), tc=True)[0]
+                        int(bit))[0]
 
 
 pow_step.launches = 0
@@ -807,7 +812,9 @@ def fp2_pow_step_plain(rns: RNSCtx, ar, ai, xr, xi, bit: int):
 
 def fp2_pow_step(rns: RNSCtx, ar, ai, xr, xi, bit: int):
     """Wrapper: one F_p^2 square-and-multiply step as one kernel on the
-    card; ar, ai, xr, xi [2k, N], bit a host int."""
+    card, blocks of lanes whose base extensions run on the tensor cores
+    (as fp2_pow_loop's); ar, ai, xr, xi [2k, N], bit a host int.
+    `launches_by_n` splits the launches by N."""
     if _is_cpu(ar):
         return fp2_pow_step_plain(rns, ar, ai, xr, xi, bit)
     return _step_launch(fp2_pow_step, "bgn_fp2_pow_step", rns,
@@ -815,6 +822,7 @@ def fp2_pow_step(rns: RNSCtx, ar, ai, xr, xi, bit: int):
 
 
 fp2_pow_step.launches = 0
+fp2_pow_step.launches_by_n = {}
 
 WRAPPERS = (miller_loop, pow_loop, fp2_pow_loop, dual_ladder, ladder_loop,
             window_ladder_tab, window_ladder, dbl_step, add_step, pt_dbl,

@@ -16,22 +16,28 @@ Phases, each of which raises on failure (the script then exits nonzero):
      digit-domain Miller step kernels (the register form for W = 17 and
      32 words, G threads per lane, and the loop form for any other L);
      the count of
-     tensor-core IMMA instructions in the SASS of the Miller loop, ladder,
-     pow_loop, fp2_pow_loop, dual_ladder, dbl_step, add_step, pt_dbl,
-     pt_add and pow_step kernels (blocks of G lanes, base extensions on
-     the tensor cores: csrc/rns_tc.cuh) for each S, which must be > 0,
-     and their shared memory per block;
+     tensor-core IMMA instructions in the SASS of the twelve kernels on
+     the tensor-core product (TC_KERNELS: every RNS kernel but
+     window_ladder; blocks of G lanes, base extensions on the tensor
+     cores: csrc/rns_tc.cuh) for each S, which must be > 0, and their
+     shared memory per block;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
      N = batch, dbl_step, add_step, pt_dbl and pt_add also at
-     N = batch - 1, decrypt-batch and 1, pow_step also at N = batch - 1,
-     decrypt-batch, 7 and 1, ragged and short blocks of G lanes, at every
-     key size; pt_add also from a window chain's start state (X = Y = 0,
-     Z = one) and both G1 steps on identity-base lanes;
+     N = batch - 1, decrypt-batch and 1, pow_step and fp2_pow_step also
+     at N = batch - 1, decrypt-batch, 7 and 1, ragged and short blocks of
+     G lanes, at every key size; pt_add also from a window chain's start
+     state (X = Y = 0, Z = one) and both G1 steps on identity-base lanes;
+     fp2_pow_step also from an F_p^2 chain's start (one, 0) and with the
+     conjugate operand of a -1 digit;
      dual_ladder at N = batch, batch - 1 and 1, its first lanes m = 0,
      r = 0, m < 0 and the identity m = r = 0, whose Z must be 0;
+     window_ladder_tab at N = batch, batch - 1 and 1 on P's table over
+     m < 340 and m < n, its first lanes m = 0 (the identity), 256 and
+     255 (one live window), also on all-zero digits (E_det(0)) and on
+     Q's table, Z = 0 exactly where no window is live;
      miller_loop also at N = batch - 3 and N = 1, a ragged last block; ladder_loop with three identity-base
      lanes, also at N = decrypt-batch - 3; pow_loop also at N = batch - 3,
      64, 7, 2, short last blocks of lanes on zeros, each timed, and at
@@ -80,9 +86,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
      Encrypt and Mult torch.equal to phase 4's outputs on the same inputs;
      EncryptDeterministic, Add, Sub, Neg, MultConst, MakeL2 -> Decrypt at
      decrypt-batch lanes; every lane checked; each step kernel must be
-     launched and the five loop-only kernels must not; the launches of
-     each step wrapper with a `launches_by_n` dict split by N; ops/s of
-     a first and a second call;
+     launched and the five loop-only kernels must not; ops/s of a first
+     and a second call; every path's launches of each wrapper with a
+     `launches_by_n` (or `launches_by_jd`) dict are printed split by N
+     (or by window count);
   4g. the limb-domain configuration, BGNParams(rns_miller="0"), on phase
      2's key: Encrypt -> Mult (the fused Miller loop through the two digit
      kernels) -> DecryptL2 at batch lanes on phase 4's inputs, Encrypt
@@ -105,7 +112,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      limb-mode outputs on the same inputs, every lane decrypted, no RNS
      kernel launched;
   5. one call of each op under torch.profiler (the re-randomized Mult and
-     L2 Add, the step-mode Mult, Encrypt and L1 decrypt, and the
+     L2 Add, the step-mode Mult, Encrypt and both decrypts, and the
      limb-mode Mult and Encrypt included): device busy time, idle share,
      the costliest device kernels, the wrappers' launches and the host's
      cudaFuncSetAttribute and cudaLaunchKernel calls; then the host
@@ -217,6 +224,14 @@ LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
 # the limb-domain configuration: the digit-domain Miller steps and
 # mont_mul, and none of the 13 RNS kernels
 DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
+# the kernels on rns_tc.cuh's tensor-core product (all RNS kernels but
+# window_ladder): phase 1 counts their IMMA instructions
+TC_KERNELS = ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
+              "dual_ladder", "window_ladder_tab", "dbl_step", "add_step",
+              "pt_dbl", "pt_add", "pow_step", "fp2_pow_step")
+# the launch splits a wrapper may keep beside its count: by N, and
+# (window_ladder_tab) by the number of windows Jd
+SPLITS = ("launches_by_n", "launches_by_jd")
 
 
 def log(msg: str) -> None:
@@ -492,15 +507,12 @@ def main() -> None:
             "shared memory per block")
     for k_ in (45, 90, 185):
         S_ = cuda_rns.slots_for(k_)
-        log(f"  k = {k_}: dual_ladder, dbl_step, add_step, pt_dbl, "
-            "pt_add, pow_step (blocks of G lanes, the rns_tc.cuh layout "
-            "of miller_loop): "
+        log(f"  k = {k_}: {', '.join(TC_KERNELS[1:])} (blocks of G "
+            "lanes, the rns_tc.cuh layout of miller_loop): "
             f"{_build.library().bgn_miller_loop_smem(k_, S_)} B of dynamic "
             "shared memory per block")
     imma = {}
-    for name in ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
-                 "dual_ladder", "dbl_step", "add_step", "pt_dbl", "pt_add",
-                 "pow_step"):
+    for name in TC_KERNELS:
         imma[name] = sass_counts(_build.BUILD_DIR / f"{name}.o",
                                  _build._nvcc(), "IMMA")
         log(f"  IMMA (tensor-core) instructions in the SASS of "
@@ -578,15 +590,18 @@ def main() -> None:
 
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
-        dual_ladder (also at B - 1 and 1), miller_loop, window_ladder_tab,
+        dual_ladder and window_ladder_tab (also at B - 1 and 1; the
+        latter also on all-zero digits and Q's table), miller_loop,
         window_ladder at B lanes, ladder_loop and fp2_pow_loop (q1) at Bd,
         pow_loop at B and 1; the step kernels at B (dbl_step, add_step,
-        pt_dbl and pt_add also at B - 1, Bd and 1, pow_step at B - 1, Bd,
-        7 and 1, fp2_pow_step at Bd; pt_add also from a window chain's
-        start, pt_dbl and pt_add at Bd on identity-base lanes), and a
-        chain of step launches against each loop kernel.  trunc: cut
-        every digit string to its first trunc digits and the random
-        exponents to trunc bits (the plain versions then stay short)."""
+        pt_dbl and pt_add also at B - 1, Bd and 1, pow_step and
+        fp2_pow_step at B - 1, Bd, 7 and 1; pt_add also from a window
+        chain's start, fp2_pow_step from an F_p^2 chain's start and with
+        the conjugate operand, pt_dbl and pt_add at Bd on identity-base
+        lanes), and a chain of step launches against each loop kernel.
+        trunc: cut every digit string to its first trunc digits and the
+        random exponents to trunc bits (the plain versions then stay
+        short)."""
         ctx, rns, dk = pk.dev.ctx, pk.dev.rns, pk.dev
         k, key_bits = rns.k, pk.key_bits
         state = 2 * k * f32                # bytes of one residue element
@@ -641,24 +656,56 @@ def main() -> None:
             if n == B:
                 X, Y, Z = out
 
-        # window_ladder_tab (EncryptDeterministic) at B lanes: the bench
-        # digits (m < 340) and full-width digits (m < n); window_ladder on
-        # the rows gathered for the full-width digits
-        full_np, _ = scheme._signed_digits(
-            [krng.randrange(top) for _ in range(B)], pk.n)
+        # window_ladder_tab (EncryptDeterministic; E_det(0) behind
+        # encrypt_zero and Neg) on P's table at B, B - 1 and 1 lanes over
+        # the bench digits (m < 340) and full-width digits (m < n), the
+        # first lanes fixed: m = 0, the identity, m = 256 (only window 1
+        # live) and m = 255 (only window 0 live); at B also on all-zero
+        # digits [2, B] (E_det(0)) and on Q's table over r < n digits.  Z
+        # is 0 exactly on the lanes with no live window.  The bounds
+        # count the live windows' additions and rows.  Then window_ladder
+        # on the rows gathered for the full-width digits at B, and the
+        # step-mode chain on them.
         wide = "m<n" if trunc is None else f"m<2^{trunc}"
-        for label, dnp in (("m<340", m_digits), (wide, full_np)):
-            lv = dnp != 0
-            n_add = int(np.maximum(lv.sum(axis=0) - 1, 0).sum())
-            row_bytes = int(lv.sum()) * 2 * state
-            dgt = torch.as_tensor(dnp, device=dev)
-            tab_out = check(
-                "window_ladder_tab", f"B={B}, Jd={dnp.shape[0]} ({label})",
-                lambda d=dgt: cuda_rns.window_ladder_tab(rns, dk.p_win, d),
-                lambda d=dgt: cuda_rns.window_ladder_tab_plain(rns, dk.p_win,
-                                                               d),
-                (n_add * e1, n_add * m1),
-                row_bytes + dnp.size * 4 + 3 * B * state, key_bits)
+        fixed = [0, 256, 255]
+
+        def digits_of(values):
+            return scheme._signed_digits(values, pk.n)[0]
+
+        wcases = (
+            ("m<340", dk.p_win, digits_of(
+                fixed + [krng.randrange(340) for _ in range(B - 3)]),
+             (B, B - 1, 1)),
+            (wide, dk.p_win, digits_of(
+                fixed + [krng.randrange(top) for _ in range(B - 3)]),
+             (B, B - 1, 1)),
+            ("all zero, E_det(0)", dk.p_win, digits_of([0] * B), (B,)),
+            (wide.replace("m", "r") + ", Q's table", dk.q_win, digits_of(
+                [krng.randrange(top) for _ in range(B)]), (B,)))
+        for label, tab, dnp, lanes in wcases:
+            for n in dict.fromkeys(lanes):
+                d_n = np.ascontiguousarray(dnp[:, :n])
+                lv = d_n != 0
+                n_add = int(np.maximum(lv.sum(axis=0) - 1, 0).sum())
+                row_bytes = int(lv.sum()) * 2 * state
+                dgt = torch.as_tensor(d_n, device=dev)
+                out = check(
+                    "window_ladder_tab", f"B={n}, Jd={d_n.shape[0]} "
+                    f"({label})",
+                    lambda t=tab, d=dgt: cuda_rns.window_ladder_tab(rns, t,
+                                                                    d),
+                    lambda t=tab, d=dgt: cuda_rns.window_ladder_tab_plain(
+                        rns, t, d),
+                    (n_add * e1, n_add * m1),
+                    row_bytes + d_n.size * 4 + 3 * n * state, key_bits)
+                zero = torch.all(out[2] == 0, dim=0).cpu().numpy()
+                if not np.array_equal(zero, ~lv.any(axis=0)):
+                    raise AssertionError(
+                        f"window_ladder_tab B={n} ({label}): Z is not 0 "
+                        "exactly on the lanes with no live window")
+                if label == wide and n == B:
+                    wide_case = (d_n, dgt, out, n_add, row_bytes)
+        dnp, dgt, tab_out, n_add, row_bytes = wide_case
         gx, gy = (g.contiguous() for g in cuda_rns._gather_rows(dk.p_win,
                                                                  dgt))
         ginf = dgt == 0
@@ -793,8 +840,8 @@ def main() -> None:
         # also at Bd, as MakeL2 runs them), the G1 steps on the same point
         # at B (the window chains) and Bd (the decrypt ladder), pow_step
         # at B, Bd and 1, fp2_pow_step at B and Bd, both with bit 1 and 0;
-        # dbl_step, add_step, pt_dbl, pt_add and pow_step also at ragged
-        # and short blocks of G lanes
+        # dbl_step, add_step, pt_dbl, pt_add, pow_step and fp2_pow_step
+        # also at ragged and short blocks of G lanes
         blob = cuda_rns.blob_layout(k)["words"] * f32
         st = tuple(v.contiguous() for v in (X, Y, Z, fr, fi))
 
@@ -842,16 +889,29 @@ def main() -> None:
                       lambda a=ins: cuda_rns.pow_step_plain(rns, *a),
                       (n * e, n * mm), (2 + bit) * n * state + blob,
                       key_bits)
-        for n in dict.fromkeys((B, Bd)):
-            for bit in (1, 0):
-                ins = tuple(v[:, :n].contiguous() for v in (fr, fi, wr, wi)) \
-                    + (bit,)
-                e, mm = ops_of(k, {"fp2_sqr": 1, "fp2_mul": bit})
-                check("fp2_pow_step", f"N={n}, bit={bit}",
-                      lambda a=ins: cuda_rns.fp2_pow_step(rns, *a),
-                      lambda a=ins: cuda_rns.fp2_pow_step_plain(rns, *a),
-                      (n * e, n * mm), (4 + 2 * bit) * n * state + blob,
-                      key_bits)
+        # fp2_pow_step on the Miller value and the unitary w of the
+        # final exponentiation, with bit 1 and 0, at B (^l), B - 1, Bd
+        # (z^q1), 7 and 1; with bit 1 also from a chain's start (ar = one,
+        # ai = 0, the first digit of both chains) at B and Bd, and with
+        # the conjugate operand (xi = 10p - wi, _fp2_chain's on a -1
+        # digit) at Bd
+        one_w = rns.one_rns.expand_as(wr).contiguous()
+        fp2_cases = [(n, bit, "", (fr, fi, wr, wi))
+                     for n in dict.fromkeys((B, B - 1, Bd, 7, 1))
+                     for bit in (1, 0)]
+        fp2_cases += [(n, 1, ", chain start", (one_w, torch.zeros_like(wr),
+                                               wr, wi))
+                      for n in dict.fromkeys((B, Bd))]
+        fp2_cases.append((Bd, 1, ", conj(x)", (fr, fi, wr,
+                                               cuda_rns._conj_im(rns, wi))))
+        for n, bit, label, vals in fp2_cases:
+            ins = tuple(v[:, :n].contiguous() for v in vals) + (bit,)
+            e, mm = ops_of(k, {"fp2_sqr": 1, "fp2_mul": bit})
+            check("fp2_pow_step", f"N={n}, bit={bit}{label}",
+                  lambda a=ins: cuda_rns.fp2_pow_step(rns, *a),
+                  lambda a=ins: cuda_rns.fp2_pow_step_plain(rns, *a),
+                  (n * e, n * mm), (4 + 2 * bit) * n * state + blob,
+                  key_bits)
 
     kernel_checks(pk, sk, B, Bd, args.seed + 1)
 
@@ -960,11 +1020,13 @@ def main() -> None:
                "digit steps at L = 34, 64, 35 and 6)")
 
     # -- 4. the main path end to end ---------------------------------------
+    splits_of = {}             # path -> kernel -> split -> {key: launches}
+
     def zero_counts():
         for wfn in wrappers.values():
             wfn.launches = 0
-        for wfn in wrappers.values():
-            getattr(wfn, "launches_by_n", {}).clear()
+            for split in SPLITS:
+                getattr(wfn, split, {}).clear()
 
     def read_counts(path_name, must):
         counts = {name: wfn.launches for name, wfn in wrappers.items()}
@@ -973,6 +1035,14 @@ def main() -> None:
                 raise AssertionError(f"{name} was not launched on the "
                                      f"{path_name} path")
         log(f"{path_name} launches: {counts}")
+        splits_of[path_name] = {
+            name: {split: dict(sorted(getattr(wfn, split).items()))
+                   for split in SPLITS if getattr(wfn, split, None)}
+            for name, wfn in wrappers.items()}
+        for name, by in splits_of[path_name].items():
+            for split, counts_by in by.items():
+                log(f"{path_name}: {name} {split.replace('_', ' ')} "
+                    f"{counts_by}")
         return counts
 
     def timed(fn):
@@ -1319,11 +1389,6 @@ def main() -> None:
         t_d = decrypt_all(sk, pk, tables, out, want, f"step-mode {op}", Bd)
         ops_s[op] = (fn, t1, t_d)
     launches_step = read_counts("step", STEP_PATH)
-    step_by_n = {name: dict(sorted(wfn.launches_by_n.items()))
-                 for name, wfn in wrappers.items()
-                 if hasattr(wfn, "launches_by_n")}
-    for name, by_n in step_by_n.items():
-        log(f"step mode: {name} launches by N {by_n}")
     for name in LOOP_ONLY:
         if launches_step[name]:
             raise AssertionError(f"{name} launched {launches_step[name]} "
@@ -1538,6 +1603,8 @@ def main() -> None:
                                                           tables)),
                       ("step-mode Decrypt (L1)", lambda: in_step_mode(
                           lambda: sk.decrypt(ct1[:Bd], pk, tables))),
+                      ("step-mode DecryptL2", lambda: in_step_mode(
+                          lambda: sk.decrypt(prod[:Bd], pk, tables))),
                       ("Mult (re-randomized)",
                        lambda: pkr.mult(ar, br, rng=random.Random(13))),
                       ("L2 Add (re-randomized)",
@@ -1570,11 +1637,20 @@ def main() -> None:
         main = recs[0]
         if name in STEP_PATH:          # the per-step configuration
             launches = launches_step[name]
+            paths = ("step",)
         elif name in digit_names:      # the limb-domain configuration
             launches = launches_digit[name]
+            paths = ("limb-domain",)
         else:
             launches = (launches_main[name] + launches_l1[name]
                         + launches_limb[name])
+            paths = ("main", "L1", "limb")
+        splits = {}
+        for path in paths:
+            for split, counts_by in splits_of[path][name].items():
+                into = splits.setdefault(split, {})
+                for key, c in counts_by.items():
+                    into[key] = into.get(key, 0) + c
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bgn_torch/csrc/{name}.cu",
@@ -1595,8 +1671,8 @@ def main() -> None:
             "key_bits": main["key_bits"], "other_shapes": recs[1:]})
         if name in imma:
             kernels[-1]["sass_imma"] = imma[name]
-        if name in step_by_n:
-            kernels[-1]["launches_by_n"] = step_by_n[name]
+        for split, counts_by in splits.items():
+            kernels[-1][split] = dict(sorted(counts_by.items()))
         kernels[-1]["ptxas"] = [
             r for r in ptxas if r["kernel"] == name
             or (name == "mont_mul" and r["kernel"].startswith("mont_"))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
-fp2_pow_loop.cu, the two digit-domain Miller step kernels, the five
+fp2_pow_loop.cu, the two digit-domain Miller step kernels, the six
 tensor-core step kernels (dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu,
-pow_step.cu) and dual_ladder.cu on one CUDA card.
+pow_step.cu, fp2_pow_step.cu), dual_ladder.cu and window_ladder_tab.cu
+on one CUDA card.
 
     python3 scripts/kernel_variants.py [--kernels mont ladder pow digits
                                         step encrypt]
@@ -38,23 +39,27 @@ chip_smoke.py), two turns in opposite orders:
     per block (digits.cuh BGN_DIGITS_THREADS) 64, 128 and 256 at the G
     that was fastest for each kernel and L, over random canonical digits
     modulo random primes of 512 and 1000 bits;
-  - dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu and pow_step.cu
-    (--kernels step): the shipped build at N = 1, 7, 2048, 8191 and 8192
-    (k = 45-47), 1, 512 and 8192 (k = 90-92) and 1 and 16 (k = 184-186),
-    pow_step at bit 1 and bit 0, and the blocks per SM that
-    __launch_bounds__ asks at S = 4 and S = 6 (rns_tc.cuh TcLanes<S> for
-    dbl_step, add_step and pt_add, TcLadder<S> for pt_dbl, TcPow<S> for
-    pow_step, all set alike in the five sources' builds) at N = 2048 and
-    8192
-    (k = 45-47) and N = 512 and 8192 (k = 90-92), over random residues
-    modulo random primes;
-  - dual_ladder.cu (--kernels encrypt): the blocks per SM that its
-    __launch_bounds__ asks at S = 4 and S = 6 (1-4 and 1-3; the shipped
-    build is timed too) at k = 45-47, N = 8192, 2 + 64 windows, and
-    k = 90-92, N = 512 and 8192, 2 + 128 windows (the Encrypt shapes of
-    the 512- and 1024-bit keys), over random window tables (residues of
-    random values below random primes, row 0 of every window zeros),
-    random 8-bit digits (dead windows among them) and random m_neg.
+  - dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu, pow_step.cu and
+    fp2_pow_step.cu (--kernels step): the shipped build at N = 1, 7,
+    2048, 8191 and 8192 (k = 45-47), 1, 512 and 8192 (k = 90-92) and 1
+    and 16 (k = 184-186), pow_step and fp2_pow_step at bit 1 and bit 0,
+    and the blocks per SM that __launch_bounds__ asks at S = 4 and S = 6
+    (rns_tc.cuh TcLanes<S> for dbl_step, add_step and pt_add, TcLadder<S>
+    for pt_dbl, TcPow<S> for pow_step, TcFp2Pow<S> for fp2_pow_step, all
+    set alike in the six sources' builds) at N = 1, 7, 2048, 8191 and
+    8192 (k = 45-47) and N = 512 and 8192 (k = 90-92), over random
+    residues modulo random primes;
+  - dual_ladder.cu and window_ladder_tab.cu (--kernels encrypt): the
+    blocks per SM that their __launch_bounds__ ask at S = 4 and S = 6
+    (1-4 and 1-3, set alike in both; the shipped build is timed too):
+    dual_ladder at k = 45-47, N = 8192, 2 + 64 windows, and k = 90-92,
+    N = 512 and 8192, 2 + 128 windows (the Encrypt shapes of the 512-
+    and 1024-bit keys), window_ladder_tab at k = 45-47, N = 8192, and
+    k = 90-92, N = 64, each over 2 windows and over all the table's
+    (64, 128; the EncryptDeterministic shapes), over random window tables
+    (residues of random values below random primes, row 0 of every
+    window zeros), random 8-bit digits (dead windows among them) and
+    random m_neg.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
 builds take most of its time (mont and ladder: ~15 minutes on the H100
@@ -99,28 +104,32 @@ DIGIT_THREADS = (64, 128, 256)
 DIGIT_SHAPES = [(kind, L, n, bits) for kind in ("dbl", "add")
                 for L, n, bits in ((34, 8192, 512), (64, 512, 1000))]
 STEP_SOURCES = ["dbl_step.cu", "add_step.cu", "pt_dbl.cu", "pt_add.cu",
-                "pow_step.cu"]
+                "pow_step.cu", "fp2_pow_step.cu"]
 # blocks per SM of the step kernels (at S = 4, at S = 6); the shipped
 # policy is timed as "shipped" ((4, 1): TcLanes', shipped by all but
 # pt_dbl)
 STEP_BLOCKS = [(1, 1), (2, 2), (3, 3), (4, 1), (5, 1)]
 # the policies of dbl_step, add_step and pt_add (the Miller kernel's),
-# pt_dbl (ladder_loop's) and pow_step (pow_loop's)
-STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Ladder|Pow) \{\n(?:  static "
+# pt_dbl (ladder_loop's), pow_step (pow_loop's) and fp2_pow_step
+# (fp2_pow_loop's)
+STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Ladder|Pow|Fp2Pow) \{\n(?:  static "
                          r"constexpr "
                          r"int G = \d+;\n)?  static constexpr int min_blocks "
                          r"= )[^;]*;")
 # (prime bits, lanes timed, lanes on which the variants are timed)
-STEP_SHAPES = ((528, (1, 7, 2048, 8191, 8192), (2048, 8192)),
+STEP_SHAPES = ((528, (1, 7, 2048, 8191, 8192), (1, 7, 2048, 8191, 8192)),
                (1056, (1, 512, 8192), (512, 8192)),
                (2080, (1, 16), ()))
-# dual_ladder.cu's __launch_bounds__ and its blocks per SM (at S = 4, at
-# S = 6) swept; S = 12 keeps one block
+# the __launch_bounds__ of dual_ladder.cu and window_ladder_tab.cu and
+# their blocks per SM (at S = 4, at S = 6) swept; S = 12 keeps one block
+ENCRYPT_SOURCES = ["dual_ladder.cu", "window_ladder_tab.cu"]
 ENCRYPT_BOUNDS = re.compile(r"__launch_bounds__\(32 \* TcLanes<S>::G, "
                             r"[^)]*\)")
 ENCRYPT_BLOCKS = [(1, 1), (2, 2), (3, 3), (4, 1)]
-# (prime bits, windows of r, lanes timed); m takes two windows
-ENCRYPT_SHAPES = ((528, 64, (8192,)), (1056, 128, (512, 8192)))
+# (prime bits, windows of r, lanes timed for dual_ladder (m takes two
+# windows), lanes timed for window_ladder_tab)
+ENCRYPT_SHAPES = ((528, 64, (8192,), (8192,)),
+                  (1056, 128, (512, 8192), (64,)))
 
 
 def digit_variant(g: dict, threads: int) -> tuple:
@@ -254,7 +263,8 @@ def main() -> None:
                                    "fp2_pow_loop", "miller_dbl_digits",
                                    "miller_add_digits", "dbl_step",
                                    "add_step", "pt_dbl", "pt_add",
-                                   "pow_step", "dual_ladder")):
+                                   "pow_step", "fp2_pow_step",
+                                   "dual_ladder", "window_ladder_tab")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -292,13 +302,14 @@ def main() -> None:
                  f"S == 6 ? {b6} : 1;")
                 for m in STEP_POLICY.finditer(tc_src)])
     if "encrypt" in args.kernels:
-        bounds = ENCRYPT_BOUNDS.search(
-            (_build.CSRC / "dual_ladder.cu").read_text()).group(0)
+        bounds = {src: ENCRYPT_BOUNDS.search(
+            (_build.CSRC / src).read_text()).group(0)
+            for src in ENCRYPT_SOURCES}
         for b4, b6 in ENCRYPT_BLOCKS:
-            variants[f"encrypt b4={b4} b6={b6}"] = (["dual_ladder.cu"], [(
-                "dual_ladder.cu", bounds,
-                "__launch_bounds__(32 * TcLanes<S>::G, "
-                f"S == 4 ? {b4} : S == 6 ? {b6} : 1)")])
+            variants[f"encrypt b4={b4} b6={b6}"] = (ENCRYPT_SOURCES, [
+                (src, bounds[src], "__launch_bounds__(32 * TcLanes<S>::G, "
+                 f"S == 4 ? {b4} : S == 6 ? {b6} : 1)")
+                for src in ENCRYPT_SOURCES])
     if "digits" in args.kernels:
         shipped_threads = int(DIGIT_THREADS_LINE.search(
             (_build.CSRC / "digits.cuh").read_text()).group(1))
@@ -422,15 +433,18 @@ def main() -> None:
                                      f(r, *a),
                                  getattr(cuda_rns, kern + "_plain")(rns, *a)))
                 for bit in (1, 0):
-                    a = (st[0], st[1], bit)
-                    jobs.append((f"pow_step k={rns.k} N={n} bit={bit}",
-                                 names,
-                                 lambda r=rns, a=a: cuda_rns.pow_step(r, *a),
-                                 cuda_rns.pow_step_plain(rns, *a)))
+                    for kern, a in (("pow_step", (st[0], st[1], bit)),
+                                    ("fp2_pow_step", (*st[:4], bit))):
+                        jobs.append((f"{kern} k={rns.k} N={n} bit={bit}",
+                                     names,
+                                     lambda r=rns, a=a,
+                                     f=getattr(cuda_rns, kern): f(r, *a),
+                                     getattr(cuda_rns, kern + "_plain")(
+                                         rns, *a)))
         log("step inputs and plain outputs ready")
 
     if "encrypt" in args.kernels:      # random tables, digits, m_neg
-        for bits, jr, lanes in ENCRYPT_SHAPES:
+        for bits, jr, lanes, tab_lanes in ENCRYPT_SHAPES:
             p = hm.gen_prime(bits, rng=rng)
             rns = rn.make_rns_ctx(p, device=dev)
             R = 256
@@ -456,6 +470,18 @@ def main() -> None:
                                             if v.startswith("encrypt")],
                              lambda r=rns, a=a: cuda_rns.dual_ladder(r, *a),
                              cuda_rns.dual_ladder_plain(rns, *a)))
+            for n in tab_lanes:
+                for jd in (2, jr):
+                    dig = torch.tensor([[rng.randrange(R) for _ in range(n)]
+                                        for _ in range(jd)], device=dev)
+                    a = (tabs[1], dig)
+                    jobs.append((f"window_ladder_tab k={rns.k} N={n} "
+                                 f"windows={jd}",
+                                 ["shipped"] + [v for v in libs
+                                                if v.startswith("encrypt")],
+                                 lambda r=rns, a=a:
+                                     cuda_rns.window_ladder_tab(r, *a),
+                                 cuda_rns.window_ladder_tab_plain(rns, *a)))
         log("encrypt inputs and plain outputs ready")
 
     digit_jobs = {}

@@ -1,16 +1,20 @@
-"""csrc/dual_ladder.cu on the tensor-core block product, held on the CPU
-without JAX: dual_ladder_plain (two window chains, every window's
-addition computed for every lane and selected, then the combine) with
-every product's extension sums routed through test_torch_tc_ext.py's
+"""csrc/dual_ladder.cu and csrc/window_ladder_tab.cu on the tensor-core
+block product, held on the CPU without JAX: dual_ladder_plain (two
+window chains, every window's addition computed for every lane and
+selected, then the combine) and window_ladder_tab_plain (one such chain)
+with every product's extension sums routed through test_torch_tc_ext.py's
 integer emulation of rns_tc.cuh's block product, over n lanes padded to
-whole blocks of G with the lanes the kernel runs past n (digits 0, so
+whole blocks of G with the lanes the kernels run past n (digits 0, so
 row 0 of every window, and m_neg 0), equal to the unpadded plain output
 bit for bit.  The tables are small and random (a few windows of R rows,
 values below p, row 0 of each window the identity's residues of 0, as
-scheme._win_rns makes them), and the first lanes are the cases of
+scheme._win_rns makes them).  dual_ladder's first lanes are the cases of
 test_torch_kernels.py's test_dual_ladder_matches_jax: m < 0 with r != 0
 (the only lane at n = 1), m = 0, r = 0, and the identity m = r = 0,
-whose Z must be 0.  The moduli are test_torch_tc_ext.py's: k = 47
+whose Z must be 0; window_ladder_tab's are a lane whose only live window
+is the last (the only lane at n = 1), the identity m = 0 and a lane whose
+only live window is the first, then random digits, or all digits zero
+(E_det(0), every Z 0).  The moduli are test_torch_tc_ext.py's: k = 47
 (S = 4), 92 (S = 6) and 186 (S = 12).
 """
 import random
@@ -87,3 +91,37 @@ def test_dual_ladder_on_the_block_product(ctx, n, monkeypatch):
     assert all(torch.equal(g[:, :n], w) for g, w in zip(got, want))
     zero = torch.all(want[2] == 0, dim=0).tolist()
     assert zero == [i == IDENT for i in range(n)]
+
+
+@pytest.mark.parametrize("n", [1, 13])
+@pytest.mark.parametrize("digits", ["lanes", "all zero"])
+def test_window_ladder_tab_on_the_block_product(ctx, digits, n,
+                                                monkeypatch):
+    """window_ladder_tab.cu's design: n lanes padded to whole blocks of
+    G = 8 with digit-0 lanes (row 0 of every window, as the kernel runs
+    lanes past n), every product's extensions on the emulated block
+    product: the n lanes of (X, Y, Z) equal the unpadded plain output bit
+    for bit.  "lanes": lane 0's only live window is the last, lane 1 is
+    m = 0 (Z = 0), lane 2's only live window is the first, the rest
+    random digits (dead windows among them); "all zero": E_det(0), every
+    Z = 0."""
+    tab = _table(ctx, JR, 5 * ctx.k)
+    dig = torch.as_tensor(np.random.default_rng(ctx.k + n).integers(
+        0, R, (JR, n)))
+    dig[:, 0] = torch.tensor([0] * (JR - 1) + [R - 1])
+    if n > 2:
+        dig[:, 1] = 0
+        dig[:, 2] = torch.tensor([1] + [0] * (JR - 1))
+    if digits == "all zero":
+        dig.zero_()
+    want = cuda_rns.window_ladder_tab_plain(ctx, tab, dig)
+    width = -(-n // G) * G
+    pad = torch.cat([dig, dig.new_zeros(JR, width - n)], dim=1)
+    monkeypatch.setattr(trn, "_ext_dot", tpc._routed_ext_dot(
+        ctx, lambda mat, q: tpc._tc_sums(ctx, mat, q)))
+    got = cuda_rns.window_ladder_tab_plain(ctx, tab, pad)
+    assert all(torch.equal(g[:, :n], w) for g, w in zip(got, want))
+    zero = torch.all(want[2] == 0, dim=0).tolist()
+    assert zero == torch.all(dig == 0, dim=0).tolist()
+    assert zero[:3] == ([True] * 3 if digits == "all zero"
+                        else [False, True, False])[:n]

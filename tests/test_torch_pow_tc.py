@@ -1,13 +1,14 @@
-"""csrc/pow_loop.cu, csrc/fp2_pow_loop.cu and csrc/pow_step.cu on the
-tensor-core block product, held on the CPU without JAX: whole
-pow_loop_plain and fp2_pow_loop_plain chains, and a chain of
-pow_step_plain launches, with every product's extension sums routed
-through test_torch_tc_ext.py's integer emulation of rns_tc.cuh's block
-product, over n lanes padded to whole blocks of G with the zero inputs
-the kernels give lanes past n (n = 1: the lone Fermat inversion of
-normalize_rns and mont_inv_rns, one live lane of eight; n = 13: a short
-last block), equal to the plain chains.  The moduli are
-test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and 186 (S = 12).
+"""csrc/pow_loop.cu, csrc/fp2_pow_loop.cu, csrc/pow_step.cu and
+csrc/fp2_pow_step.cu on the tensor-core block product, held on the CPU
+without JAX: whole pow_loop_plain and fp2_pow_loop_plain chains, and
+chains of pow_step_plain and fp2_pow_step_plain launches, with every
+product's extension sums routed through test_torch_tc_ext.py's integer
+emulation of rns_tc.cuh's block product, over n lanes padded to whole
+blocks of G with the zero inputs the kernels give lanes past n (n = 1:
+the lone Fermat inversion of normalize_rns and mont_inv_rns, one live
+lane of eight; n = 13: a short last block), equal to the plain chains.
+The moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and
+186 (S = 12).
 """
 import random
 
@@ -110,3 +111,45 @@ def test_chains_on_the_block_product(ctx, kernel, n, monkeypatch):
         ctx, lambda mat, q: _tc_sums(ctx, mat, q)))
     got = chain(*pad)
     assert all(torch.equal(g[:, :n], w) for g, w in zip(got, want))
+
+
+def _padded(n, step):
+    """step on its inputs' n lanes padded to whole blocks of G with zeros,
+    the inputs a step kernel gives lanes past n at every launch, and the
+    outputs cut back to n lanes."""
+    width = -(-n // G) * G
+
+    def padded(rns, *args):
+        ins = [torch.cat([v, v.new_zeros(v.shape[0], width - n)], dim=1)
+               if isinstance(v, torch.Tensor) else v for v in args]
+        return tuple(o[:, :n] for o in step(rns, *ins))
+    return padded
+
+
+@pytest.mark.parametrize("n", [1, 13])
+def test_fp2_pow_steps_on_the_block_product(ctx, n, monkeypatch):
+    """fp2_pow_step.cu's design: a chain of fp2_pow_step_plain launches
+    as cuda_rns._fp2_chain makes them (digits 1, -1, 0, 1: from the
+    chain's start ar = one, ai = 0, a product with x, with conj(x) =
+    (xr, 10p - xi), none, then x), each launch on n lanes padded with the
+    zeros fp2_pow_step.cu loads for lanes past n (all four inputs), every
+    product's extensions on the emulated block product; each step's n
+    lanes equal the unpadded plain step's bit for bit."""
+    xr, xi = (_values(ctx, n, 3 * ctx.k + i) for i in range(2))
+
+    def chain(step):
+        outs = []
+
+        def record(rns, *args):
+            outs.append(step(rns, *args))
+            return outs[-1]
+        cuda_rns._fp2_chain(ctx, xr, xi, [1, -1, 0, 1], record)
+        return outs
+
+    want = chain(cuda_rns.fp2_pow_step_plain)
+    monkeypatch.setattr(trn, "_ext_dot", _routed_ext_dot(
+        ctx, lambda mat, q: _tc_sums(ctx, mat, q)))
+    got = chain(_padded(n, cuda_rns.fp2_pow_step_plain))
+    assert len(got) == len(want) == 4
+    for g_step, w_step in zip(got, want):
+        assert all(torch.equal(g, w) for g, w in zip(g_step, w_step))

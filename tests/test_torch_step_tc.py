@@ -1,19 +1,21 @@
 """csrc/dbl_step.cu, csrc/add_step.cu, csrc/pt_dbl.cu, csrc/pt_add.cu,
-csrc/pow_step.cu and csrc/dual_ladder.cu on the tensor-core block
-product, held on the CPU without JAX: chains of dbl_step_plain,
-add_step_plain, pt_dbl_plain and pt_add_plain launches with every
-product's extension sums routed through test_torch_tc_ext.py's integer
-emulation of rns_tc.cuh's block product, over n lanes padded to whole
-blocks of G with the zero inputs the kernels give lanes past n (n = 1:
-seven of eight warps on zeros; n = 13: a short last block), equal to the
-plain steps at every step (pow_step's chain is one of
-test_torch_pow_tc.py's, dual_ladder's test_torch_dual_tc.py's).  The six
-sources, and the compute-then-select window chain of rns.cuh that
-dual_ladder.cu runs, are read for the deadlock of a block-wide product (a
-warp that returns, continues or breaks before the kernel's last product
-leaves its block's barriers waiting, or desynchronises them), and their C
-entries against the ctypes argument types.  The moduli are
-test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and 186 (S = 12).
+csrc/pow_step.cu, csrc/fp2_pow_step.cu, csrc/dual_ladder.cu and
+csrc/window_ladder_tab.cu on the tensor-core block product, held on the
+CPU without JAX: chains of dbl_step_plain, add_step_plain, pt_dbl_plain
+and pt_add_plain launches with every product's extension sums routed
+through test_torch_tc_ext.py's integer emulation of rns_tc.cuh's block
+product, over n lanes padded to whole blocks of G with the zero inputs
+the kernels give lanes past n (n = 1: seven of eight warps on zeros;
+n = 13: a short last block), equal to the plain steps at every step
+(pow_step's and fp2_pow_step's chains are test_torch_pow_tc.py's,
+dual_ladder's and window_ladder_tab's test_torch_dual_tc.py's).  The
+eight sources, and the compute-then-select window chain of rns.cuh that
+dual_ladder.cu and window_ladder_tab.cu run, are read for the deadlock
+of a block-wide product (a warp that returns, continues or breaks before
+the kernel's last product leaves its block's barriers waiting, or
+desynchronises them), and their C entries against the ctypes argument
+types.  The moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92
+(S = 6) and 186 (S = 12).
 """
 import ctypes
 import re
@@ -40,8 +42,14 @@ KERNELS = {
                "bgn_pt_add"),
     "pow_step": ("pow_step.cu", "bgn_pow_step_kernel", r"MulTc<S>::mul\(",
                  "bgn_pow_step"),
+    "fp2_pow_step": ("fp2_pow_step.cu", "bgn_fp2_pow_step_kernel",
+                     r"fp2_(?:sqr|mul)<S, MulTc<S>>\(", "bgn_fp2_pow_step"),
     "dual_ladder": ("dual_ladder.cu", "bgn_dual_ladder_kernel",
                     r"<S, MulTc<S>>\(", "bgn_dual_ladder"),
+    "window_ladder_tab": ("window_ladder_tab.cu",
+                          "bgn_window_ladder_tab_kernel",
+                          r"win_chain_sel<S, MulTc<S>>\(",
+                          "bgn_window_ladder_tab"),
 }
 # device functions with products that a kernel above calls through the
 # tensor-core policy: (header, function, its products)
@@ -164,8 +172,9 @@ def test_no_warp_returns_before_the_last_product():
     return, continue or break before its last product deadlocks its block
     or runs its warps' products out of step: no kernel body, and no
     helper with products that one calls (the window chain of
-    dual_ladder.cu), has a `return`, `continue` or `break` before its last
-    product call, and every kernel calls the tensor-core product."""
+    dual_ladder.cu and window_ladder_tab.cu), has a `return`, `continue`
+    or `break` before its last product call, and every kernel calls the
+    tensor-core product."""
     bodies = [(kernel, _body(_source(source), kernel), product)
               for source, kernel, product, _ in KERNELS.values()]
     bodies += [(head, _body(_source(source), head), product)
@@ -179,6 +188,9 @@ def test_no_warp_returns_before_the_last_product():
     dual = _body(_source("dual_ladder.cu"), "bgn_dual_ladder_kernel")
     assert "win_chain_sel<S, MulTc<S>>(" in dual
     assert "jac_add_full<S, MulTc<S>>(" in dual
+    fp2 = _body(_source("fp2_pow_step.cu"), "bgn_fp2_pow_step_kernel")
+    assert "fp2_sqr<S, MulTc<S>>(" in fp2
+    assert "fp2_mul<S, MulTc<S>>(" in fp2
 
 
 @pytest.mark.parametrize("kernel", sorted(KERNELS))
