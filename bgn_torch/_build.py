@@ -29,11 +29,8 @@ LIB_NAME = "libbgn_rns.so"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# C entry -> argument types, the stream last; the RNS kernels take
-# (blob, k, slots, ...) first, the tensor-core kernels (miller_loop,
-# ladder_loop, pow_loop, fp2_pow_loop, dual_ladder, window_ladder_tab,
-# dbl_step, add_step, pt_dbl, pt_add, pow_step, fp2_pow_step) (blob,
-# planes, k, slots, ...);
+# C entry -> argument types, the stream last; the RNS kernels, every one
+# on the tensor-core product, take (blob, planes, k, slots, ...) first;
 # bgn_mont_mul_loop is mont_mul's local-memory loop at any L (chip_smoke.py
 # times it beside the register kernels)
 _SIGNATURES = {
@@ -49,7 +46,8 @@ _SIGNATURES = {
                         _P, _P, _I, _P],
     "bgn_window_ladder_tab": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P,
                               _P, _I, _P],
-    "bgn_window_ladder": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    "bgn_window_ladder": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I,
+                          _P],
     "bgn_dbl_step": [_P, _P, _I, _I] + [_P] * 12 + [_I, _P],
     "bgn_add_step": [_P, _P, _I, _I] + [_P] * 14 + [_I, _P],
     "bgn_pt_dbl": [_P, _P, _I, _I] + [_P] * 6 + [_I, _P],

@@ -1,9 +1,11 @@
 // RNS field and curve arithmetic as CUDA device functions: the library
 // that every RNS kernel of bgn_torch runs (a loop kernel calls the steps
 // in a loop, a step kernel once), the counterpart of
-// bgn_tpu/fieldcore/rns.py (_red, r_mul, r_add, r_sub) and the step
-// functions of bgn_tpu/ops/rns_pairing.py (_dbl_step, _add_step, _dbl_pt,
-// _add_pt, _fp2_mul, _fp2_sqr) and pallas_rns.py (_jac_add_full).
+// bgn_tpu/fieldcore/rns.py (_red, r_add, r_sub) and the step functions of
+// bgn_tpu/ops/rns_pairing.py (_dbl_step, _add_step, _dbl_pt, _add_pt,
+// _fp2_mul, _fp2_sqr) and pallas_rns.py (_jac_add_full).  The RNS
+// Montgomery product itself is rns_tc.cuh's r_mul_tc, which every kernel
+// passes to the step functions as their product policy (Mul: MulTc<S>).
 //
 // An F_p element is 2k residues modulo 12-bit primes (base A = channels
 // 0..k-1, base B = channels k..2k-1).  One warp owns one lane (one batch
@@ -14,23 +16,15 @@
 // (2048-bit keys, k = 185); the wrapper picks S from k (ops/cuda_rns.py
 // slots_for).  Which base a slot holds follows from ch < k, so base A may
 // end inside a slot (at k = 90, slot 2 holds base-A channels 64..89 and
-// base-B channels 90..95).  Every index into an Fe is
-// a compile-time constant and every helper is inlined (r_mul is one
+// base-B channels 90..95).  Every index into an Fe is a compile-time
+// constant and every helper here is inlined (the product is one
 // out-of-line copy per S taking and returning Fe by value), so a lane's
-// whole loop state stays in registers: no local memory, no cache misses
-// on the dependent chain.  Channelwise work is one slot op per thread;
-// the two base extensions of an r_mul broadcast each source residue to
-// the warp with a shuffle, and each thread accumulates the destination
-// channels it owns against the extension matrix.  Up to k = 96 the whole
-// constant blob sits in shared memory (matrix rows per destination,
-// padded to a stride of 1 mod 32, so the warp's reads hit distinct
-// banks).  Above k = 96 the two k x k matrices (286 KB at k = 185) do not
-// fit the 227 KB a block may use: they stay in device memory (L2-resident,
-// read through __ldg), stored one row per SOURCE channel indexed by
-// destination channel and padded to 32 words, so the warp's read of one
-// source against its 32 destinations is one aligned 128-byte line; the
-// small vectors and kp (58 KB at k = 185) stay in shared memory.
-// Branches depend only on a lane's digits, so a warp never diverges.
+// whole loop state stays in registers.  Channelwise work is one slot op
+// per thread; the constants a thread reads (moduli, reciprocals, the
+// Montgomery one, (K*p) mod m) sit in shared memory at the word offsets
+// of the constant blob (bgn_layout, mirrored by cuda_rns.blob_layout).
+// Branches depend only on a lane's digits or flags, or on digits shared
+// by the block, so a warp never diverges.
 //
 // Exactness: every float value is an integer below 2^24, so float
 // products and sums are exact, and contraction into FMAs changes nothing.
@@ -57,14 +51,8 @@
 // The result of each step is the canonical residue of the same integer
 // that the plain PyTorch version (fieldcore/rns.py) reduces, so the two
 // agree bit for bit.  Above k = 192 there is no instantiation (a key with
-// more channels takes the limb path: scheme._make_rns).
-//
-// The product r_mul_v below is the one window_ladder.cu runs (through
-// win_chain); the twelve other RNS kernels run the block-wide
-// tensor-core product of rns_tc.cuh, all but pow_loop's and pow_step's
-// products through the product policy of the step functions (dbl_step,
-// add_step; dbl_pt, add_pt, jac_add_full; fp2_sqr, fp2_mul).
-// What bounds each on the H100 is written there.
+// more channels takes the limb path: scheme._make_rns).  What bounds each
+// kernel on the H100 is written in its source and in rns_tc.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -73,29 +61,26 @@
 #include <type_traits>
 
 #define BGN_KNARROW 64                 // narrow alpha path: k <= 64
-#define BGN_KSMEM 96                   // k above: matrices in device memory
+#define BGN_KSMEM 96                   // k above: S = 12, blob rows per source
 #define BGN_KPCOLS 33                  // kp columns: (K*p) mod m, K <= 32
-#define BGN_LANES 4                    // lanes (warps) per block
-#define BGN_THREADS (32 * BGN_LANES)
 #define BGN_FULL 0xffffffffu
 
 // A lane's F_p element as this thread's S slots; passed by value to the
-// out-of-line r_mul (4S bytes travel in registers), by reference to the
+// out-of-line product (4S bytes travel in registers), by reference to the
 // inlined helpers, so it never lives in memory.
 template <int S>
 struct Fe {
   float v[S];
 };
 
-// The block's copy of the constant blob (dynamic shared memory), and the
-// blob itself in device memory (read for the matrices at S = 12).
+// The block's copy of the constants (dynamic shared memory).
 extern __shared__ float bgn_smem[];
-static __shared__ const int* bgn_gblob;
 
 // Shape of the constants and this thread's place in its warp; the other
 // fields are word offsets into bgn_smem (so every access is a shared-
-// memory load, also inside the out-of-line r_mul) or, for the matrices
-// above k = BGN_KSMEM, into the device-memory blob.
+// memory load, also inside the out-of-line product) or, for the matrices,
+// into the blob (their offsets lay out the blob; the kernels take the
+// matrices as rns_tc.cuh's planes instead).
 struct RnsConsts {
   int k, ch, rs, lid;          // rs: matrix row stride; lid: thread in warp
   int m, recip, one, kp, qc_a, p_mod_b, ainv_b, crt_inv_b, b_mod_a;
@@ -149,12 +134,6 @@ static __host__ __device__ inline int bgn_layout(int k, RnsConsts* c,
   return o;
 }
 
-static inline size_t bgn_smem_bytes(int k) {
-  RnsConsts c;
-  bgn_layout(k, &c, k > BGN_KSMEM);
-  return sizeof(float) * c.smem;
-}
-
 // The C = KC*m bias of the extensions: must exceed the largest alpha
 // (<= k).  Mirrors fieldcore/rns.py _kc.
 static __host__ __device__ inline int bgn_kc(int k) {
@@ -162,39 +141,6 @@ static __host__ __device__ inline int bgn_kc(int k) {
   int b = 0;
   for (int v = k + 1; v; v >>= 1) b++;
   return 1 << (b > 7 ? b : 7);
-}
-
-// Copy the blob's shared part into shared memory (whole block) and lay it
-// out.  Every thread of the block calls it before any early return.
-template <int S>
-static __device__ inline RnsConsts bgn_load_consts(const float* blob, int k) {
-  RnsConsts c;
-  bgn_layout(k, &c, S > 6);
-  for (int w = threadIdx.x; w < c.smem; w += blockDim.x) bgn_smem[w] = blob[w];
-  if (threadIdx.x == 0) bgn_gblob = reinterpret_cast<const int*>(blob);
-  __syncthreads();
-  c.lid = threadIdx.x & 31;
-  return c;
-}
-
-// Entry (destination channel ch, source channel src) of the extension
-// matrix at word offset mat, as an unsigned 32-bit value: from shared
-// memory (row dst_row = ch's row) for S <= 6, k <= BGN_KSMEM, or from the
-// device-memory rows per source for S = 12.
-template <int S>
-static __device__ __forceinline__ unsigned bgn_ext(const RnsConsts& c,
-                                                   const int* g, int mat,
-                                                   int dst_row, int ch,
-                                                   int src) {
-  if constexpr (S > 6)
-    return (unsigned)__ldg(g + mat + src * c.rs + ch);
-  else
-    return (unsigned)BGN_I(mat + dst_row * c.rs + src);
-}
-
-// The lane this thread's warp serves.
-static __device__ __forceinline__ int bgn_lane() {
-  return blockIdx.x * BGN_LANES + (threadIdx.x >> 5);
 }
 
 static __device__ __forceinline__ int warp_sum(int v) {
@@ -312,146 +258,16 @@ static __device__ __forceinline__ int bgn_alpha(int s, double eps) {
   return (int)floor((double)s * (1.0 / 524288.0) + eps);
 }
 
-// RNS Montgomery product x*y/A (value bound 3), by the whole warp.  Out of
-// line: one copy per kernel and S keeps the build short (inlined at its
-// ~40 call sites, ptxas took minutes).  Base A lies in slots < S/2.
-template <int S>
-static __device__ __noinline__ Fe<S> r_mul_v(const int k, const Fe<S> x,
-                                             const Fe<S> y) {
-  constexpr int SA = S / 2;          // slots that may hold base A (k <= 16S)
-  const int* g = S > 6 ? bgn_gblob : nullptr;
-  RnsConsts c;                       // offsets from k: registers, no memory
-  bgn_layout(k, &c, S > 6);
-  c.lid = threadIdx.x & 31;
-  const bool wide = S > 4 && k > BGN_KNARROW;
-  // extension sums: int32 to k = 128, unsigned above (audit at the top)
-  using Acc = typename std::conditional<(S > 6), unsigned, int>::type;
-  const Acc KC = S > 4 ? bgn_kc(k) : 128;       // S = 4 implies k <= 64
-  Fe<S> out = {};
-  int qv[S];              // qhat (base A channels) and later rhat (base B)
-  float dB[S];
-  int s1 = 0;
-  double w1 = 0.0;
-#pragma unroll
-  for (int s = 0; s < S; s++) {
-    const int ch = BGN_CH(c, s);
-    const float d = bgn_red(__fmul_rn(x.v[s], y.v[s]), bgn_mod(c, ch),
-                            ch < c.ch ? BGN_F(c.recip + ch) : 1.f);
-    qv[s] = 0;
-    dB[s] = d;
-    if (ch < k) {
-      qv[s] = (int)bgn_red(__fmul_rn(d, BGN_F(c.qc_a + ch)),
-                           BGN_F(c.m + ch), BGN_F(c.recip + ch));
-      if (wide)
-        w1 += (double)qv[s] * (double)BGN_F(c.recip + ch);
-      else
-        s1 += BGN_I(c.w1a + ch) * qv[s];
-    }
-  }
-  // ext A -> B: q * p * A^-1 in base B (alpha biased down by 0.4)
-  const int a1 = wide ? (int)floor(warp_sum(w1) - 0.4)
-                      : bgn_alpha(warp_sum(s1), -0.4);
-  Acc acc[S];
-#pragma unroll
-  for (int s = 0; s < S; s++) acc[s] = 0;
-#pragma unroll
-  for (int sa = 0; sa < SA; sa++) {
-#pragma unroll 8
-    for (int l = 0; l < 32; l++) {
-      const int i = 32 * sa + l;
-      if (i >= k) break;
-      const Acc q = __shfl_sync(BGN_FULL, qv[sa], l);
-#pragma unroll
-      for (int s = 0; s < S; s++) {
-        const int ch = BGN_CH(c, s);
-        if (ch >= k && ch < c.ch)
-          acc[s] += q * (Acc)bgn_ext<S>(c, g, c.mat1, ch - k, ch, i);
-      }
-    }
-  }
-  int s2 = 0;
-  double w2 = 0.0;
-#pragma unroll
-  for (int s = 0; s < S; s++) {
-    const int ch = BGN_CH(c, s);
-    if (ch >= k && ch < c.ch) {
-      const int j = ch - k;
-      const float m = BGN_F(c.m + ch), r = BGN_F(c.recip + ch);
-      const Acc mi = (Acc)m;
-      const Acc T = acc[s] + KC * mi - (Acc)a1 * (Acc)BGN_F(c.p_mod_b + j);
-      const float qpa = (float)(T % mi);
-      const float v = bgn_red(__fmul_rn(dB[s], BGN_F(c.ainv_b + j)), m, r) + qpa;
-      const float rr = v >= m ? v - m : v;
-      out.v[s] = rr;
-      qv[s] = (int)bgn_red(__fmul_rn(rr, BGN_F(c.crt_inv_b + j)), m, r);
-      if (wide)
-        w2 += (double)qv[s] * (double)r;
-      else
-        s2 += BGN_I(c.w2a + j) * qv[s];
-    }
-  }
-  // ext B -> A: exact (alpha centred)
-  const int a2 = wide ? (int)floor(warp_sum(w2) + 0.5)
-                      : bgn_alpha(warp_sum(s2), 0.5);
-  Acc acc2[SA];
-#pragma unroll
-  for (int s = 0; s < SA; s++) acc2[s] = 0;
-#pragma unroll
-  for (int sb = 0; sb < S; sb++) {
-    if (32 * sb + 31 < k) continue;             // no base-B channel here
-#pragma unroll 8
-    for (int l = 0; l < 32; l++) {
-      const int chb = 32 * sb + l;
-      if (chb >= c.ch) break;
-      const Acc q = __shfl_sync(BGN_FULL, qv[sb], l);
-      if (chb < k) continue;
-      const int j = chb - k;
-#pragma unroll
-      for (int s = 0; s < SA; s++) {
-        const int ch = BGN_CH(c, s);
-        if (ch < k) acc2[s] += q * (Acc)bgn_ext<S>(c, g, c.mat2, ch, ch, j);
-      }
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < SA; s++) {
-    const int ch = BGN_CH(c, s);
-    if (ch < k) {
-      const Acc mi = (Acc)BGN_F(c.m + ch);
-      const Acc T = acc2[s] + KC * mi - (Acc)a2 * (Acc)BGN_F(c.b_mod_a + ch);
-      out.v[s] = (float)(T % mi);
-    }
-  }
-  return out;
-}
-
-template <int S>
-static __device__ __forceinline__ void r_mul(const RnsConsts& c, Fe<S>& out,
-                                             const Fe<S>& x, const Fe<S>& y) {
-  out = r_mul_v<S>(c.k, x, y);
-}
-
-// The product policy of the step functions (dbl_step, add_step, dbl_pt,
-// add_pt, jac_add_full, fp2_sqr, fp2_mul): Mul::mul(c, out, x, y).  The default is
-// r_mul_v, one warp per lane, which window_ladder.cu runs; every other
-// kernel that calls them passes the block-wide product of rns_tc.cuh.
-template <int S>
-struct MulWarp {
-  static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,
-                                             const Fe<S>& x,
-                                             const Fe<S>& y) {
-    r_mul(c, out, x, y);
-  }
-};
-
 // ---------------------------------------------------------------------------
 // Curve and Miller steps.  The integer after each r_sub is the static
 // bound K of its subtrahend, as rns_pairing.py's RVal bookkeeping sets it
-// (invariants X, Y < 27p, Z < 6p, f < 9p, affine inputs < 3p).
+// (invariants X, Y < 27p, Z < 6p, f < 9p, affine inputs < 3p).  Mul is
+// the product policy, Mul::mul(c, out, x, y): every kernel names it, and
+// every kernel passes rns_tc.cuh's block-wide MulTc<S>.
 // ---------------------------------------------------------------------------
 
 // Jacobian doubling + tangent line at phi(B) + f <- f^2 * line (21 r_muls).
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
                                                 Fe<S>& X, Fe<S>& Y, Fe<S>& Z,
                                                 Fe<S>& fr, Fe<S>& fi,
@@ -516,7 +332,7 @@ static __device__ __forceinline__ void dbl_step(const RnsConsts& c,
 
 // Mixed addition V + A + line through V, A at phi(B) + f <- f * line
 // (17 r_muls).
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void add_step(const RnsConsts& c,
                                                 Fe<S>& X1, Fe<S>& Y1,
                                                 Fe<S>& Z1, Fe<S>& fr,
@@ -566,7 +382,7 @@ static __device__ __forceinline__ void add_step(const RnsConsts& c,
 // Jacobian doubling without line math (9 r_muls, 9 r_adds, 4 r_subs), the
 // operation order of rns_pairing.py _dbl_pt; result bounds (27, 27, 6).
 // Mul: the product policy, as for dbl_step.
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void dbl_pt(const RnsConsts& c, Fe<S>& X,
                                               Fe<S>& Y, Fe<S>& Z) {
   Fe<S> XX, YY, ZZ;
@@ -598,7 +414,7 @@ static __device__ __forceinline__ void dbl_pt(const RnsConsts& c, Fe<S>& X,
 
 // Mixed addition V + A without line math or completeness selects
 // (11 r_muls).
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe<S>& X1,
                                               Fe<S>& Y1, Fe<S>& Z1,
                                               const Fe<S>& ax,
@@ -625,54 +441,14 @@ static __device__ __forceinline__ void add_pt(const RnsConsts& c, Fe<S>& X1,
   r_sub(c, Y1, HH, RR, 3);
 }
 
-// One window of a fixed-base chain (pallas_rns.py _win_ladder_kernel): the
-// first live window sets the accumulator to its row (Z = 1), a later one
-// adds the row.  Called only for live windows.
-template <int S>
-static __device__ __forceinline__ void win_step(const RnsConsts& c, Fe<S>& X,
-                                                Fe<S>& Y, Fe<S>& Z, bool& st,
-                                                const Fe<S>& RX,
-                                                const Fe<S>& RY) {
-  if (!st) {
-    fe_copy(X, RX);
-    fe_copy(Y, RY);
-    fe_one(c, Z);
-    st = true;
-  } else {
-    add_pt(c, X, Y, Z, RX, RY);
-  }
-}
-
-// One window chain over windows [j0, j1) of per-lane `digits` ([Jt, n])
-// (window_ladder.cu, on r_mul_v: a warp skips its dead windows),
-// row d of window j read from the tables tx/ty [J, R, 2k] at
-// ((j - j0) * R + d) * 2k (one contiguous run per row); returns whether a
-// window was live (digit != 0; row 0 is the identity).
-template <int S>
-static __device__ __forceinline__ bool win_chain(const RnsConsts& c,
-                                                 Fe<S>& X, Fe<S>& Y,
-                                                 Fe<S>& Z, const float* tx,
-                                                 const float* ty, int R,
-                                                 const int* digits, int j0,
-                                                 int j1, int n, int lane) {
-  bool st = false;
-  for (int j = j0; j < j1; j++) {
-    const int d = digits[(size_t)j * n + lane];
-    if (d == 0) continue;            // not live: chain unchanged
-    const size_t row = ((size_t)(j - j0) * R + d) * c.ch;
-    Fe<S> RX, RY;
-    fe_gather(c, RX, tx + row);
-    fe_gather(c, RY, ty + row);
-    win_step(c, X, Y, Z, st, RX, RY);
-  }
-  return st;
-}
-
-// The window chain of win_chain computed for every lane and selected, as
-// the TPU kernels (_dual_ladder_kernel, _win_ladder_tab_kernel) and the
-// plain version (ops/cuda_rns.py _window_chain) run it, so that every
-// warp of a block runs the same products (Mul: the block-wide product of
-// rns_tc.cuh; dual_ladder.cu and window_ladder_tab.cu).
+// One fixed-base window chain over windows [j0, j1) of per-lane `digits`
+// ([Jt, n]), row d of window j read from the tables tx/ty [J, R, 2k] at
+// ((j - j0) * R + d) * 2k (one contiguous run per row; row 0 is the
+// identity), computed for every lane and selected, as the TPU kernels
+// (_dual_ladder_kernel, _win_ladder_tab_kernel) and the plain version
+// (ops/cuda_rns.py _window_chain) run it, so that every warp of a block
+// runs the same products (Mul: the block-wide product of rns_tc.cuh;
+// dual_ladder.cu and window_ladder_tab.cu).
 // At every window each warp gathers its lane's row d (a dead window,
 // d = 0, and a lane >= n, which reads no digit, gather row 0: residues
 // of 0) and adds it to the accumulator (add_pt, 11 products); then a
@@ -717,7 +493,7 @@ static __device__ __forceinline__ bool win_chain_sel(
 // General Jacobian + Jacobian addition (both live, not +-equal);
 // result bounds (12, 6, 3).  Outputs overwrite X1, Y1, Z1.  Mul: the
 // product policy, as for dbl_step.
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
                                                     Fe<S>& X1, Fe<S>& Y1,
                                                     Fe<S>& Z1,
@@ -752,7 +528,7 @@ static __device__ __forceinline__ void jac_add_full(const RnsConsts& c,
 
 // F_p^2: (ar, ai) <- (ar + ai i)^2 with input bounds (9, 9).  Mul: the
 // product policy, as for dbl_step.
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe<S>& ar,
                                                Fe<S>& ai) {
   Fe<S> ta, tb, ab;
@@ -764,7 +540,7 @@ static __device__ __forceinline__ void fp2_sqr(const RnsConsts& c, Fe<S>& ar,
 }
 
 // F_p^2 Karatsuba: (ar, ai) <- (ar + ai i)(xr + xi i).
-template <int S, class Mul = MulWarp<S>>
+template <int S, class Mul>
 static __device__ __forceinline__ void fp2_mul(const RnsConsts& c, Fe<S>& ar,
                                                Fe<S>& ai, const Fe<S>& xr,
                                                const Fe<S>& xi) {
@@ -809,17 +585,6 @@ static __device__ __forceinline__ void fe_store(const RnsConsts& c,
     const int ch = BGN_CH(c, s);
     if (ch < c.ch) dst[(size_t)ch * n + lane] = v.v[s];
   }
-}
-
-// Raise the dynamic shared-memory limit and pick the launch shape.
-template <typename K>
-static inline cudaError_t bgn_prepare(K kernel, int k, int n, dim3* grid,
-                                      size_t* smem) {
-  *smem = bgn_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-  *grid = dim3((n + BGN_LANES - 1) / BGN_LANES);
-  return err;
 }
 
 // Launch the instantiation for `slots` (4: k <= 64, 6: k <= 96, 12:

@@ -1,35 +1,37 @@
 // The RNS Montgomery product with its two base extensions on the tensor
 // cores, for a block of G lanes (G warps, one warp per lane as in rns.cuh):
-// the product miller_loop.cu, ladder_loop.cu, pow_loop.cu,
-// fp2_pow_loop.cu, dual_ladder.cu, window_ladder_tab.cu, dbl_step.cu,
-// add_step.cu, pt_dbl.cu, pt_add.cu, pow_step.cu and fp2_pow_step.cu run.
-// The other RNS kernel, window_ladder.cu, keeps r_mul_v.
+// the product every RNS kernel runs (miller_loop.cu, ladder_loop.cu,
+// pow_loop.cu, fp2_pow_loop.cu, dual_ladder.cu, window_ladder_tab.cu,
+// window_ladder.cu, dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu,
+// pow_step.cu and fp2_pow_step.cu).  Its specification is the plain
+// version's r_mul (fieldcore/rns.py): the same channelwise steps, the
+// same alpha estimates and the same exact extension sums.
 //
-// What bounds the warp product r_mul_v on the H100: instruction issue.
-// Its two base extensions are matrix-vector products that it runs one
-// source channel at a time: a shuffle of the source residue, then per
-// slot one load of a matrix entry and one integer multiply-add, ~800
-// issued instructions per thread per product at k = 45 (the 512-bit key),
-// against ~140 for all the channelwise work.  At S = 12 the matrix reads come from L1/L2
-// and the Fe<12> state spills.
+// Why the tensor cores: a base extension is a matrix-vector product of
+// the k x k extension matrix and a lane's k source residues.  Run by one
+// warp per lane, one source channel at a time (a shuffle of the residue,
+// then per slot a load of a matrix entry and an integer multiply-add), it
+// is bound by instruction issue: ~800 issued instructions per thread per
+// product at k = 45 (the 512-bit key), against ~140 for all the
+// channelwise work.
 //
 // What r_mul_tc does about it: the G lanes of a block share the two k x k
 // extension matrices, so an extension becomes one matrix product
 // [k x k] x [k x G] for the block, which the tensor cores run as
 // mma.sync.aligned.m16n8k32 over unsigned 8-bit operands with 32-bit
 // sums:
-//  1. every warp does the channelwise work of its lane as r_mul_v does
-//     (d = x*y, qhat, the alpha sum, exact and per warp) and writes its
-//     lane's k source residues into a shared tile as two u8 planes, lo
-//     (bits 0-7) and hi (bits 8-11), one column per lane;
+//  1. every warp does the channelwise work of its lane (d = x*y, qhat,
+//     the alpha sum, exact and per warp) and writes its lane's k source
+//     residues into a shared tile as two u8 planes, lo (bits 0-7) and hi
+//     (bits 8-11), one column per lane;
 //  2. __syncthreads(); the warps split the ceil(k/16) x G/8 output tiles
 //     and run, per 32-channel step of the source, four products of the
 //     matrix planes and the residue planes (HH, HL, LH, LL; HL and LH
 //     share one accumulator);
 //  3. each tile's sums combine as HH * 2^16 + (HL + LH) * 2^8 + LL into a
 //     shared [G x k] tile of 32-bit words; __syncthreads();
-//  4. every warp reads its lane's column back into acc[s] and goes on as
-//     r_mul_v does (T = acc + KC*m - alpha*(p mod b) ...).
+//  4. every warp reads its lane's column back and goes on channelwise
+//     (T = sum + KC*m - alpha*(p mod b) ...).
 // The same for the extension B -> A: four barriers per product.  The
 // matrix planes (cuda_rns.tc_planes) sit in shared memory in the
 // m16n8k32 A-fragment order, so a warp loads a fragment with one 16-byte
@@ -41,18 +43,20 @@
 // lo plane (< 256) and a hi plane (< 16).  Each plane product sum is at
 // most k * 255^2 < 2^31 (k <= 192), so the signed 32-bit mma sums are
 // exact, and HL + LH at most 2 * k * 255 * 15.  The combined value is
-// exactly the integer dot product r_mul_v sums, sum_i q_i * M[dst][i];
-// every term is nonnegative and the sum is bounded by the audit of
-// rns.cuh (below k * 4092^2 + (KC + 1) * 4093 < 3.22e9 at k = 192), so it
-// fits unsigned 32 bits at S = 12 and int32 below (k <= 96).  So r_mul_tc
-// returns what r_mul_v returns, bit for bit.
+// exactly the integer dot product sum_i q_i * M[dst][i] that the plain
+// version's extension computes (fieldcore/rns.py, through its 6-bit
+// split); every term is nonnegative and the sum is bounded by the audit
+// of rns.cuh (below k * 4092^2 + (KC + 1) * 4093 < 3.22e9 at k = 192), so
+// it fits unsigned 32 bits at S = 12 and int32 below (k <= 96).  So
+// r_mul_tc returns the plain version's residues bit for bit.
 //
 // Lanes >= n of the last block run on zeros and store nothing, so every
 // warp of the block reaches every barrier; the Miller and ladder digits
 // are shared by all lanes, so all warps run the same sequence of
-// products, and the window chains' per-lane digits (dual_ladder.cu,
-// window_ladder_tab.cu) pick among additions computed for every lane
-// (rns.cuh win_chain_sel).
+// products, and the window chains' per-lane digits or flags
+// (dual_ladder.cu, window_ladder_tab.cu, window_ladder.cu) pick among
+// additions computed for every lane (rns.cuh win_chain_sel,
+// window_ladder.cu win_chain_rows).
 #pragma once
 
 #include "rns.cuh"
@@ -68,8 +72,8 @@
 // Miller loop per launch, takes the same caps: at S = 4, N = 8192 four
 // blocks beat one to three and five, at S = 6 one block is best at the
 // 1024-bit key's batches (PERF.md §6, the step sweep); so do add_step.cu,
-// one addition per launch, dual_ladder.cu and window_ladder_tab.cu (the
-// encrypt sweep) and pt_add.cu (at N = 8192, Encrypt's window chains,
+// one addition per launch, dual_ladder.cu, window_ladder_tab.cu and
+// window_ladder.cu (the encrypt sweep) and pt_add.cu (at N = 8192, Encrypt's window chains,
 // four blocks beat one to three and five by 8-24 %; at the decrypt's 2048
 // one or two blocks win by 8 %, less in all than Encrypt loses).
 template <int S>
@@ -231,9 +235,11 @@ static __device__ __forceinline__ void bgn_tc_put(const TcLayout& t, int G,
 }
 
 // RNS Montgomery product x*y/A (value bound 3) for the block's G lanes,
-// equal to r_mul_v bit for bit; every warp of the block calls it with its
-// lane's operands.  Out of line, as r_mul_v.  The channelwise steps are
-// r_mul_v's; only the two extension sums come from the tensor cores.
+// equal to the plain version's r_mul (fieldcore/rns.py) bit for bit;
+// every warp of the block calls it with its lane's operands.  Out of line:
+// one copy per kernel and S keeps the build short (inlined at its ~40
+// call sites, ptxas took minutes).  The channelwise steps run per warp;
+// only the two extension sums come from the tensor cores.
 template <int S>
 static __device__ __noinline__ Fe<S> r_mul_tc(const int k, const Fe<S> x,
                                               const Fe<S> y) {
@@ -319,9 +325,9 @@ static __device__ __noinline__ Fe<S> r_mul_tc(const int k, const Fe<S> x,
 
 // The product policy that runs r_mul_tc: of the step functions (dbl_step,
 // add_step, dbl_pt, add_pt) in miller_loop.cu, ladder_loop.cu and the
-// step kernels, of add_pt and jac_add_full in dual_ladder.cu and
-// window_ladder_tab.cu, and of fp2_sqr / fp2_mul in fp2_pow_loop.cu and
-// fp2_pow_step.cu.
+// step kernels, of add_pt and jac_add_full in dual_ladder.cu,
+// window_ladder_tab.cu and window_ladder.cu, and of fp2_sqr / fp2_mul in
+// fp2_pow_loop.cu and fp2_pow_step.cu.
 template <int S>
 struct MulTc {
   static __device__ __forceinline__ void mul(const RnsConsts& c, Fe<S>& out,

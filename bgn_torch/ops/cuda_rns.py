@@ -46,14 +46,11 @@ keys (k = 90), and S = 12 for k <= 192, which covers 2048-bit keys
 ValueError for a CUDA tensor with k > 192 (scheme._make_rns gives such a
 key no RNS context, so no path sends one).  They run one warp per lane
 with the loop state in registers (a step kernel loads it from device
-memory and stores it back) and the RNS constants in shared memory (the
-two extension matrices in device memory above k = 96).  One of them,
-window_ladder, computes the base extensions as exact 32-bit integer dot
-products per warp; the other twelve run blocks of G lanes whose warps
-compute them together on the tensor cores, from the u8 planes of the
-extension matrices (`tc_planes`).  csrc/rns.cuh and
-csrc/rns_tc.cuh say what bounds them and why.  They agree with the plain
-versions bit for bit.
+memory and stores it back) and the RNS constants in shared memory, in
+blocks of G lanes whose warps compute the base extensions together on
+the tensor cores, from the u8 planes of the extension matrices
+(`tc_planes`).  csrc/rns.cuh and csrc/rns_tc.cuh say what bounds them
+and why.  They agree with the plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -646,8 +643,12 @@ window_ladder_tab.launches_by_jd = {}
 
 
 def window_ladder(rns: RNSCtx, gx, gy, ginf):
-    """Wrapper: the chain over a gathered stream, one kernel on the card.
-    gx, gy: contiguous float32 [Jd, 2k, N]; ginf: [Jd, N]."""
+    """Wrapper: the chain over a gathered stream, one kernel on the card,
+    blocks of lanes whose base extensions run on the tensor cores (as
+    window_ladder_tab's), every window's addition computed for every lane
+    and selected, as window_ladder_plain does, but a window dead in every
+    lane of a block skipped by the block.  gx, gy: contiguous float32
+    [Jd, 2k, N]; ginf: [Jd, N]."""
     if _is_cpu(gx):
         return window_ladder_plain(rns, gx, gy, ginf)
     S = slots_for(rns.k)
@@ -663,9 +664,9 @@ def window_ladder(rns: RNSCtx, gx, gy, ginf):
     X = torch.empty((ch, n), dtype=torch.float32, device=gx.device)
     Y, Z = torch.empty_like(X), torch.empty_like(X)
     if n:
-        _launch("bgn_window_ladder", _ptr(const_blob(rns)), rns.k, S,
-                _ptr(gx), _ptr(gy), _ptr(gi), Jd, _ptr(X), _ptr(Y), _ptr(Z),
-                n)
+        _launch("bgn_window_ladder", _ptr(const_blob(rns)),
+                _ptr(tc_planes(rns)), rns.k, S, _ptr(gx), _ptr(gy),
+                _ptr(gi), Jd, _ptr(X), _ptr(Y), _ptr(Z), n)
         window_ladder.launches += 1
     return X, Y, Z
 

@@ -16,11 +16,10 @@ Phases, each of which raises on failure (the script then exits nonzero):
      digit-domain Miller step kernels (the register form for W = 17 and
      32 words, G threads per lane, and the loop form for any other L);
      the count of
-     tensor-core IMMA instructions in the SASS of the twelve kernels on
-     the tensor-core product (TC_KERNELS: every RNS kernel but
-     window_ladder; blocks of G lanes, base extensions on the tensor
-     cores: csrc/rns_tc.cuh) for each S, which must be > 0, and their
-     shared memory per block;
+     tensor-core IMMA instructions in the SASS of the thirteen RNS
+     kernels, every one on the tensor-core product (TC_KERNELS: blocks of
+     G lanes, base extensions on the tensor cores: csrc/rns_tc.cuh) for
+     each S, which must be > 0, and their shared memory per block;
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
      decryption tables;
   3. kernels: each of the seven RNS loop kernels and the six step
@@ -37,7 +36,14 @@ Phases, each of which raises on failure (the script then exits nonzero):
      window_ladder_tab at N = batch, batch - 1 and 1 on P's table over
      m < 340 and m < n, its first lanes m = 0 (the identity), 256 and
      255 (one live window), also on all-zero digits (E_det(0)) and on
-     Q's table, Z = 0 exactly where no window is live;
+     Q's table, Z = 0 exactly where no window is live; window_ladder
+     (on no path) at N = batch, batch - 1 and 1 on streams gathered from
+     P's table: window_ladder_tab's m < n and m < 340 digits (equal to
+     window_ladder_tab too), every window dead, and whole blocks of G
+     lanes dead at a third of the windows, the dead rows of the last two
+     nonzero, and at N = batch the all-zero digits' rows (E_det(0)), Z = 0
+     exactly where no window is live (every output 0 on the all-dead
+     streams);
      miller_loop also at N = batch - 3 and N = 1, a ragged last block; ladder_loop with three identity-base
      lanes, also at N = decrypt-batch - 3; pow_loop also at N = batch - 3,
      64, 7, 2, short last blocks of lanes on zeros, each timed, and at
@@ -224,11 +230,14 @@ LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
 # the limb-domain configuration: the digit-domain Miller steps and
 # mont_mul, and none of the 13 RNS kernels
 DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
-# the kernels on rns_tc.cuh's tensor-core product (all RNS kernels but
-# window_ladder): phase 1 counts their IMMA instructions
+# the kernels on rns_tc.cuh's tensor-core product (every RNS kernel):
+# phase 1 counts their IMMA instructions
 TC_KERNELS = ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
-              "dual_ladder", "window_ladder_tab", "dbl_step", "add_step",
-              "pt_dbl", "pt_add", "pow_step", "fp2_pow_step")
+              "dual_ladder", "window_ladder_tab", "window_ladder",
+              "dbl_step", "add_step", "pt_dbl", "pt_add", "pow_step",
+              "fp2_pow_step")
+# lanes per block of the tensor-core kernels (rns_tc.cuh TcLanes<S>::G)
+TC_G = 8
 # the launch splits a wrapper may keep beside its count: by N, and
 # (window_ladder_tab) by the number of windows Jd
 SPLITS = ("launches_by_n", "launches_by_jd")
@@ -590,10 +599,11 @@ def main() -> None:
 
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
-        dual_ladder and window_ladder_tab (also at B - 1 and 1; the
-        latter also on all-zero digits and Q's table), miller_loop,
-        window_ladder at B lanes, ladder_loop and fp2_pow_loop (q1) at Bd,
-        pow_loop at B and 1; the step kernels at B (dbl_step, add_step,
+        dual_ladder, window_ladder_tab (also at B - 1 and 1; also on
+        all-zero digits and Q's table) and window_ladder (at B, B - 1 and
+        1 on four gathered streams, at B on a fifth), miller_loop at B
+        lanes, ladder_loop and fp2_pow_loop (q1) at Bd, pow_loop at B and
+        1; the step kernels at B (dbl_step, add_step,
         pt_dbl and pt_add also at B - 1, Bd and 1, pow_step and
         fp2_pow_step at B - 1, Bd, 7 and 1; pt_add also from a window
         chain's start, fp2_pow_step from an F_p^2 chain's start and with
@@ -663,15 +673,15 @@ def main() -> None:
         # live) and m = 255 (only window 0 live); at B also on all-zero
         # digits [2, B] (E_det(0)) and on Q's table over r < n digits.  Z
         # is 0 exactly on the lanes with no live window.  The bounds
-        # count the live windows' additions and rows.  Then window_ladder
-        # on the rows gathered for the full-width digits at B, and the
-        # step-mode chain on them.
+        # count the live windows' additions and rows.  Then the step-mode
+        # chain on the full-width digits at B, and window_ladder.
         wide = "m<n" if trunc is None else f"m<2^{trunc}"
         fixed = [0, 256, 255]
 
         def digits_of(values):
             return scheme._signed_digits(values, pk.n)[0]
 
+        tab_outs = {}                 # (label, n) -> (digits, output)
         wcases = (
             ("m<340", dk.p_win, digits_of(
                 fixed + [krng.randrange(340) for _ in range(B - 3)]),
@@ -703,27 +713,76 @@ def main() -> None:
                     raise AssertionError(
                         f"window_ladder_tab B={n} ({label}): Z is not 0 "
                         "exactly on the lanes with no live window")
-                if label == wide and n == B:
-                    wide_case = (d_n, dgt, out, n_add, row_bytes)
-        dnp, dgt, tab_out, n_add, row_bytes = wide_case
-        gx, gy = (g.contiguous() for g in cuda_rns._gather_rows(dk.p_win,
-                                                                 dgt))
-        ginf = dgt == 0
-        got = check(
-            "window_ladder", f"B={B}, Jd={dnp.shape[0]} ({wide}, gathered)",
-            lambda: cuda_rns.window_ladder(rns, gx, gy, ginf),
-            lambda: cuda_rns.window_ladder_plain(rns, gx, gy, ginf),
-            (n_add * e1, n_add * m1),
-            row_bytes + dnp.size * 4 + 3 * B * state, key_bits)
-        if not all(torch.equal(u, v) for u, v in zip(got, tab_out)):
-            raise AssertionError("window_ladder != window_ladder_tab")
-        del gx, gy
+                tab_outs[(label, n)] = (d_n, out)
+        dnp, tab_out = tab_outs[(wide, B)]
         chain_equal("window_ladder_tab", f"B={B}, Jd={dnp.shape[0]} "
                     f"({wide})", tab_out,
                     lambda: tuple(v.v for v in in_step_mode(
-                        lambda: rp.fixed_base_mul_rns(ctx, rns, dk.p_win,
-                                                      dgt, raw=True))),
+                        lambda: rp.fixed_base_mul_rns(
+                            ctx, rns, dk.p_win,
+                            torch.as_tensor(dnp, device=dev), raw=True))),
                     key_bits)
+
+        # window_ladder (on no path: the same chain over a gathered
+        # stream) at B, B - 1 and 1 lanes on streams gathered from P's
+        # table: the full-width and the m < 340 digits above, equal to
+        # window_ladder_tab on the same rows too (at N = 1 the lane m = 0,
+        # every window dead); and two streams whose dead rows hold a
+        # point (the full-width digits, each 0 gathered as row 1): every
+        # window dead (every output 0), and whole blocks of TC_G lanes
+        # dead at a third of the windows while the other blocks are live
+        # there (the windows the kernel's blocks skip; at N = 1 a lone
+        # lane live at two thirds of them); at B also E_det(0)'s rows, all
+        # dead (window_ladder_tab's all-zero digits, equal to it too).  Z
+        # is 0 exactly on the lanes with no live window.  The bounds count
+        # the live windows' additions and rows.
+        m340 = tab_outs[("m<340", B)][0]
+        zero_d = tab_outs[("all zero, E_det(0)", B)][0]
+        block_dead = (np.arange(B)[None] // TC_G * 7
+                      + np.arange(dnp.shape[0])[:, None]) % 3 == 0
+        every = (B, B - 1, 1)
+        gcases = ((f"{wide}, gathered", dnp, dnp == 0, wide, every),
+                  ("m<340, gathered", m340, m340 == 0, "m<340", every),
+                  ("every window dead, rows nonzero",
+                   np.where(dnp == 0, 1, dnp), np.ones(dnp.shape, bool),
+                   None, every),
+                  (f"blocks of {TC_G} dead at a third of the windows, "
+                   "rows nonzero", np.where(dnp == 0, 1, dnp), block_dead,
+                   None, every),
+                  ("all zero, E_det(0), gathered", zero_d, zero_d == 0,
+                   "all zero, E_det(0)", (B,)))
+        for label, rows_of, dead, tab_label, lanes in gcases:
+            gx, gy = cuda_rns._gather_rows(dk.p_win, torch.as_tensor(
+                rows_of, device=dev))
+            for n in dict.fromkeys(lanes):
+                lv = ~dead[:, :n]
+                n_add = int(np.maximum(lv.sum(axis=0) - 1, 0).sum())
+                gx_n, gy_n = (g[:, :, :n].contiguous() for g in (gx, gy))
+                ginf = torch.as_tensor(dead[:, :n], device=dev)
+                out = check(
+                    "window_ladder", f"B={n}, Jd={dead.shape[0]} ({label})",
+                    lambda x=gx_n, y=gy_n, f=ginf: cuda_rns.window_ladder(
+                        rns, x, y, f),
+                    lambda x=gx_n, y=gy_n, f=ginf:
+                        cuda_rns.window_ladder_plain(rns, x, y, f),
+                    (n_add * e1, n_add * m1),
+                    int(lv.sum()) * 2 * state + lv.size * 4
+                    + 3 * n * state, key_bits)
+                zero = torch.all(out[2] == 0, dim=0).cpu().numpy()
+                if not np.array_equal(zero, ~lv.any(axis=0)):
+                    raise AssertionError(
+                        f"window_ladder B={n} ({label}): Z is not 0 "
+                        "exactly on the lanes with no live window")
+                if not lv.any() and any(bool(v.any()) for v in out):
+                    raise AssertionError(f"window_ladder B={n} ({label}): "
+                                         "an output lane is not 0")
+                if tab_label is not None and not all(
+                        torch.equal(u, v) for u, v in
+                        zip(out, tab_outs[(tab_label, n)][1])):
+                    raise AssertionError(f"window_ladder B={n} ({label}) "
+                                         "!= window_ladder_tab")
+                del gx_n, gy_n
+            del gx, gy
 
         # ciphertext points -> Miller inputs (normalize runs pow_loop, N=1)
         pt = rp.normalize_rns(ctx, rns, X, Y, Z)

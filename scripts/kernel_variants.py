@@ -2,8 +2,8 @@
 """Time build variants of mont_mul.cu, ladder_loop.cu, pow_loop.cu,
 fp2_pow_loop.cu, the two digit-domain Miller step kernels, the six
 tensor-core step kernels (dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu,
-pow_step.cu, fp2_pow_step.cu), dual_ladder.cu and window_ladder_tab.cu
-on one CUDA card.
+pow_step.cu, fp2_pow_step.cu), dual_ladder.cu, window_ladder_tab.cu and
+window_ladder.cu on one CUDA card.
 
     python3 scripts/kernel_variants.py [--kernels mont ladder pow digits
                                         step encrypt]
@@ -49,17 +49,19 @@ chip_smoke.py), two turns in opposite orders:
     set alike in the six sources' builds) at N = 1, 7, 2048, 8191 and
     8192 (k = 45-47) and N = 512 and 8192 (k = 90-92), over random
     residues modulo random primes;
-  - dual_ladder.cu and window_ladder_tab.cu (--kernels encrypt): the
-    blocks per SM that their __launch_bounds__ ask at S = 4 and S = 6
-    (1-4 and 1-3, set alike in both; the shipped build is timed too):
-    dual_ladder at k = 45-47, N = 8192, 2 + 64 windows, and k = 90-92,
-    N = 512 and 8192, 2 + 128 windows (the Encrypt shapes of the 512-
-    and 1024-bit keys), window_ladder_tab at k = 45-47, N = 8192, and
-    k = 90-92, N = 64, each over 2 windows and over all the table's
-    (64, 128; the EncryptDeterministic shapes), over random window tables
-    (residues of random values below random primes, row 0 of every
-    window zeros), random 8-bit digits (dead windows among them) and
-    random m_neg.
+  - dual_ladder.cu, window_ladder_tab.cu and window_ladder.cu
+    (--kernels encrypt): the blocks per SM that their __launch_bounds__
+    ask at S = 4 and S = 6 (1-4 and 1-3, set alike in all three; the
+    shipped build is timed too): dual_ladder at k = 45-47, N = 8192,
+    2 + 64 windows, and k = 90-92, N = 512 and 8192, 2 + 128 windows (the
+    Encrypt shapes of the 512- and 1024-bit keys), window_ladder_tab at
+    k = 45-47, N = 8192, and k = 90-92, N = 64, each over 2 windows and
+    over all the table's (64, 128; the EncryptDeterministic shapes), and
+    window_ladder on the rows window_ladder_tab reads there, gathered
+    into its [Jd, 2k, N] stream (dead where the digit is 0), over random
+    window tables (residues of random values below random primes, row 0
+    of every window zeros), random 8-bit digits (dead windows among
+    them) and random m_neg.
 Every variant's output is torch.equal to the plain version's, or the
 script raises.  The shipped sources are not changed.  The variants'
 builds take most of its time (mont and ladder: ~15 minutes on the H100
@@ -120,14 +122,16 @@ STEP_POLICY = re.compile(r"(struct Tc(?:Lanes|Ladder|Pow|Fp2Pow) \{\n(?:  static
 STEP_SHAPES = ((528, (1, 7, 2048, 8191, 8192), (1, 7, 2048, 8191, 8192)),
                (1056, (1, 512, 8192), (512, 8192)),
                (2080, (1, 16), ()))
-# the __launch_bounds__ of dual_ladder.cu and window_ladder_tab.cu and
-# their blocks per SM (at S = 4, at S = 6) swept; S = 12 keeps one block
-ENCRYPT_SOURCES = ["dual_ladder.cu", "window_ladder_tab.cu"]
+# the __launch_bounds__ of dual_ladder.cu, window_ladder_tab.cu and
+# window_ladder.cu and their blocks per SM (at S = 4, at S = 6) swept;
+# S = 12 keeps one block
+ENCRYPT_SOURCES = ["dual_ladder.cu", "window_ladder_tab.cu",
+                   "window_ladder.cu"]
 ENCRYPT_BOUNDS = re.compile(r"__launch_bounds__\(32 \* TcLanes<S>::G, "
                             r"[^)]*\)")
 ENCRYPT_BLOCKS = [(1, 1), (2, 2), (3, 3), (4, 1)]
 # (prime bits, windows of r, lanes timed for dual_ladder (m takes two
-# windows), lanes timed for window_ladder_tab)
+# windows), lanes timed for window_ladder_tab and window_ladder)
 ENCRYPT_SHAPES = ((528, 64, (8192,), (8192,)),
                   (1056, 128, (512, 8192), (64,)))
 
@@ -264,7 +268,7 @@ def main() -> None:
                                    "miller_add_digits", "dbl_step",
                                    "add_step", "pt_dbl", "pt_add",
                                    "pow_step", "fp2_pow_step",
-                                   "dual_ladder", "window_ladder_tab")):
+                                   "dual_ladder", "window_ladder")):
             log(f"  ptxas {r['kernel']} {r['S']} {r['G']}: "
                 f"{r['registers']} registers, spill stores "
                 f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
@@ -482,6 +486,15 @@ def main() -> None:
                                  lambda r=rns, a=a:
                                      cuda_rns.window_ladder_tab(r, *a),
                                  cuda_rns.window_ladder_tab_plain(rns, *a)))
+                    g = (*(v.contiguous() for v in cuda_rns._gather_rows(
+                        tabs[1], dig)), dig == 0)
+                    jobs.append((f"window_ladder k={rns.k} N={n} "
+                                 f"windows={jd}",
+                                 ["shipped"] + [v for v in libs
+                                                if v.startswith("encrypt")],
+                                 lambda r=rns, g=g:
+                                     cuda_rns.window_ladder(r, *g),
+                                 cuda_rns.window_ladder_plain(rns, *g)))
         log("encrypt inputs and plain outputs ready")
 
     digit_jobs = {}

@@ -1,18 +1,20 @@
 """csrc/dbl_step.cu, csrc/add_step.cu, csrc/pt_dbl.cu, csrc/pt_add.cu,
-csrc/pow_step.cu, csrc/fp2_pow_step.cu, csrc/dual_ladder.cu and
-csrc/window_ladder_tab.cu on the tensor-core block product, held on the
-CPU without JAX: chains of dbl_step_plain, add_step_plain, pt_dbl_plain
-and pt_add_plain launches with every product's extension sums routed
-through test_torch_tc_ext.py's integer emulation of rns_tc.cuh's block
-product, over n lanes padded to whole blocks of G with the zero inputs
-the kernels give lanes past n (n = 1: seven of eight warps on zeros;
-n = 13: a short last block), equal to the plain steps at every step
-(pow_step's and fp2_pow_step's chains are test_torch_pow_tc.py's,
-dual_ladder's and window_ladder_tab's test_torch_dual_tc.py's).  The
-eight sources, and the compute-then-select window chain of rns.cuh that
-dual_ladder.cu and window_ladder_tab.cu run, are read for the deadlock
-of a block-wide product (a warp that returns, continues or breaks before
-the kernel's last product leaves its block's barriers waiting, or
+csrc/pow_step.cu, csrc/fp2_pow_step.cu, csrc/dual_ladder.cu,
+csrc/window_ladder_tab.cu and csrc/window_ladder.cu on the tensor-core
+block product, held on the CPU without JAX: chains of dbl_step_plain,
+add_step_plain, pt_dbl_plain and pt_add_plain launches with every
+product's extension sums routed through test_torch_tc_ext.py's integer
+emulation of rns_tc.cuh's block product, over n lanes padded to whole
+blocks of G with the zero inputs the kernels give lanes past n (n = 1:
+seven of eight warps on zeros; n = 13: a short last block), equal to the
+plain steps at every step (pow_step's and fp2_pow_step's chains are
+test_torch_pow_tc.py's, dual_ladder's and window_ladder_tab's
+test_torch_dual_tc.py's, window_ladder's test_torch_window_tc.py's).  The
+nine sources, and the compute-then-select window chains that
+dual_ladder.cu and window_ladder_tab.cu (rns.cuh win_chain_sel) and
+window_ladder.cu (win_chain_rows) run, are read for the deadlock of a
+block-wide product (a warp that returns, continues or breaks before the
+kernel's last product leaves its block's barriers waiting, or
 desynchronises them), and their C entries against the ctypes argument
 types.  The moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92
 (S = 6) and 186 (S = 12).
@@ -50,11 +52,15 @@ KERNELS = {
                           "bgn_window_ladder_tab_kernel",
                           r"win_chain_sel<S, MulTc<S>>\(",
                           "bgn_window_ladder_tab"),
+    "window_ladder": ("window_ladder.cu", "bgn_window_ladder_kernel",
+                      r"win_chain_rows<S, MulTc<S>>\(", "bgn_window_ladder"),
 }
 # device functions with products that a kernel above calls through the
 # tensor-core policy: (header, function, its products)
 HELPERS = {
     "win_chain_sel": ("rns.cuh", "win_chain_sel", r"add_pt<S, Mul>\("),
+    "win_chain_rows": ("window_ladder.cu", "win_chain_rows",
+                       r"add_pt<S, Mul>\("),
 }
 
 
@@ -171,10 +177,10 @@ def test_no_warp_returns_before_the_last_product():
     the block, so a kernel that lets a warp (a lane past n, a dead window)
     return, continue or break before its last product deadlocks its block
     or runs its warps' products out of step: no kernel body, and no
-    helper with products that one calls (the window chain of
-    dual_ladder.cu and window_ladder_tab.cu), has a `return`, `continue`
-    or `break` before its last product call, and every kernel calls the
-    tensor-core product."""
+    helper with products that one calls (the window chains of
+    dual_ladder.cu, window_ladder_tab.cu and window_ladder.cu), has a
+    `return`, `continue` or `break` before its last product call, and
+    every kernel calls the tensor-core product."""
     bodies = [(kernel, _body(_source(source), kernel), product)
               for source, kernel, product, _ in KERNELS.values()]
     bodies += [(head, _body(_source(source), head), product)

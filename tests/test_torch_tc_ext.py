@@ -51,7 +51,7 @@ def _tiles(k):
 
 def _blob_mats(ctx):
     """mat1 [dst j, src i] and mat2 [dst i, src j] read back from the
-    constant blob of the warp kernels (both of its layouts)."""
+    constant blob (both of its layouts)."""
     k = ctx.k
     off = cuda_rns.blob_layout(k)
     blob = cuda_rns.const_blob(ctx).numpy().astype(np.int64)
