@@ -17,11 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import encoding
 from .fieldcore.montgomery import MontCtx
 from .fieldcore.rns import _BUFFERS, RNSCtx
 from .ops.bsgs import DecryptTables, GroupTable
 from .ops.curve import AffinePoint
-from .scheme import BGNPublicKey, PublicDeviceKey
+from .scheme import BGNPublicKey, PolyEncodingParams, PublicDeviceKey
 
 
 def _ints(a) -> np.ndarray:
@@ -79,10 +80,22 @@ def device_key(ctx: MontCtx, rns: RNSCtx | None, P, Q, n_bits, n_naf,
 
 def public_key(key_bits: int, n: int, l: int, p: int, msg_space: int,
                deterministic: bool, P_host, Q_host,
-               dev: PublicDeviceKey) -> BGNPublicKey:
-    return BGNPublicKey(key_bits=key_bits, n=n, l=l, p=p,
-                        msg_space=msg_space, deterministic=deterministic,
-                        P_host=tuple(P_host), Q_host=tuple(Q_host), dev=dev)
+               dev: PublicDeviceKey, poly_params=None,
+               n_digits_kind: str | None = None) -> BGNPublicKey:
+    """BGNPublicKey from the JAX key's host fields and the device key;
+    poly_params as (poly_base, fp_scale_base, fp_precision), from which
+    the encoding tables are rebuilt as keygen builds them, and the Miller
+    digit encoding n_digits_kind, so that the key encodes and serializes
+    as the JAX key does."""
+    pk = BGNPublicKey(key_bits=key_bits, n=n, l=l, p=p, msg_space=msg_space,
+                      deterministic=deterministic, P_host=tuple(P_host),
+                      Q_host=tuple(Q_host), dev=dev,
+                      poly_params=None if poly_params is None
+                      else PolyEncodingParams(*poly_params),
+                      n_digits_kind=n_digits_kind)
+    if poly_params is not None:
+        encoding.compute_encoding_table(pk)
+    return pk
 
 
 def group_table(digests, values, keys, salts) -> GroupTable:

@@ -167,6 +167,16 @@ def add_affine(ctx: MontCtx, a: AffinePoint, b: AffinePoint) -> JacPoint:
     return madd(ctx, to_jac(ctx, a), b)
 
 
+def sum_affine(ctx: MontCtx, points, batch_shape, rns=None) -> AffinePoint:
+    """Sum of affine point batches of one batch shape: a fold of complete
+    mixed additions into a Jacobian accumulator (no inversion per step)
+    and ONE normalize at the end (rns as in normalize)."""
+    v = jac_infinity(ctx, tuple(batch_shape))
+    for pt in points:
+        v = madd(ctx, v, pt)
+    return normalize(ctx, v, rns=rns)
+
+
 def fixed_base_mul(ctx: MontCtx, table: AffinePoint, digits) -> JacPoint:
     """base^e from a radix-R window table: table [L, J, R] with entry
     (j, d) = base^(d*R^j) (d = 0 the identity); digits [Jd, *batch] base-R

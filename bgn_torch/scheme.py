@@ -24,8 +24,13 @@ Entry points take `device=` and default to "cuda"; tests pass
 device="cpu", where the kernel wrappers run their plain PyTorch versions.
 Randomness comes from a `random.Random` the caller passes, as in the JAX
 package, drawn in the same order, so a seeded keygen gives the same key
-and a seeded op the same ciphertext in both packages.  The plaintext
-encoding tables are a later slice.
+and a seeded op the same ciphertext in both packages.
+
+The key also carries what the plaintext encodings need (encoding.py):
+PolyEncodingParams and the degree tables, filled at keygen as the
+reference's NewKeyGen does (bgn.go:135).  public_key_from_parts rebuilds
+the whole device key from its host parts (serialize.py loads keys through
+it), with the Miller digit encoding that keygen chose replayed.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import encoding
 from . import hostmath as hm
 from .fieldcore import limbs as lb
 from .fieldcore import montgomery as mg
@@ -126,14 +132,27 @@ class PublicDeviceKey(nn.Module):
         return None if self.q_win_x is None else (self.q_win_x, self.q_win_y)
 
 
+@dataclasses.dataclass
+class PolyEncodingParams:
+    """Reference PolyEncodingParams (bgn.go:20-24)."""
+
+    poly_base: int
+    fp_scale_base: int
+    fp_precision: float
+
+
 class BGNPublicKey:
     """Public key: host metadata + device arrays + op methods
-    (reference PublicKey, bgn.go:28-41)."""
+    (reference PublicKey, bgn.go:28-41).  poly_params: the plaintext
+    encodings' parameters; n_digits_kind: the Miller digit encoding keygen
+    chose ("naf" or "bits"), which serialization records."""
 
     def __init__(self, key_bits: int, n: int, l: int, p: int,
                  msg_space: int, deterministic: bool,
                  P_host: Tuple[int, int], Q_host: Tuple[int, int],
-                 dev: PublicDeviceKey):
+                 dev: PublicDeviceKey,
+                 poly_params: PolyEncodingParams | None = None,
+                 n_digits_kind: str | None = None):
         self.key_bits = key_bits
         self.n = n
         self.l = l
@@ -143,6 +162,9 @@ class BGNPublicKey:
         self.P_host = P_host
         self.Q_host = Q_host
         self.dev = dev
+        self.poly_params = poly_params
+        self.n_digits_kind = n_digits_kind
+        self._encoding_tables = None  # encoding.compute_encoding_table
         self._sampler_ctx = None      # lazy MontCtx mod n (encrypt_device)
 
     def encrypt(self, ms: Sequence[int], rng=None) -> "Ciphertext":
@@ -374,6 +396,21 @@ class Ciphertext:
                                       self.data.y[:, idx],
                                       self.data.inf[idx]), False)
 
+    def string(self, pk) -> str:
+        """Canonical hex of every batch element, one per line (the analog
+        of Ciphertext.String, ciphertext.go:60-62; needs pk to leave the
+        Montgomery domain)."""
+        flat = self.reshape((_flat(self.batch_shape) or 1,))
+        nb = 2 * pk.dev.ctx.L
+        if self.level2:
+            vals = convert.fp2_to_host(pk.dev.ctx, flat.data)
+            return "\n".join(f"[{re:0{2 * nb}x}, {im:0{2 * nb}x}]"
+                             for re, im in vals)
+        pts = convert.affine_to_host(pk.dev.ctx, flat.data)
+        return "\n".join("O" if P is None
+                         else f"[{P[0]:0{2 * nb}x}, {P[1]:0{2 * nb}x}]"
+                         for P in pts)
+
 
 # ---------------------------------------------------------------------------
 # Keygen
@@ -388,48 +425,131 @@ def keygen(key_bits: int, msg_space: int, poly_base: int = 3,
 
     The host does the number theory; the device arrays are uploaded once.
     Pass a random.Random for a reproducible key: the same seed gives the
-    JAX package's key.  poly_base, fp_scale_base and fp_precision belong
-    to the plaintext encodings, a later slice; they are accepted for the
-    reference's signature."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch versions")
+    JAX package's key.  The encoding tables are computed as the reference
+    does at the end of NewKeyGen (bgn.go:135)."""
+    device = _check_device(device)
     gk = hm.golden_keygen(key_bits, msg_space, rng)
     params = gk.params
     L = lb.num_limbs_for_bits(key_bits + _L_MARGIN_BITS)
     if params.p.bit_length() > 16 * L:
         raise ValueError("cofactor l unexpectedly large; retry keygen")
-    ctx = mg.make_mont_ctx(params.p, L=L, device=device)
-    rns = _make_rns(params.p, L, device)
-    n_naf, _ = _exp_digits(params.n, key_bits, (params.q1, params.q2, params.n))
-    p_rows = _window_table(gk.P, params.p, key_bits)
-    q_rows = _window_table(gk.Q, params.p, key_bits)
+    n_naf, n_digits_kind = _exp_digits(params.n, key_bits,
+                                       (params.q1, params.q2, params.n))
+    dev = _device_key(key_bits, params.n, params.l, params.p, L, gk.P, gk.Q,
+                      n_naf, hm.tate_pairing(gk.Q, gk.Q, params), device)
+    pk = BGNPublicKey(key_bits=key_bits, n=params.n, l=params.l, p=params.p,
+                      msg_space=msg_space, deterministic=deterministic,
+                      P_host=gk.P, Q_host=gk.Q, dev=dev,
+                      poly_params=PolyEncodingParams(poly_base,
+                                                     fp_scale_base,
+                                                     fp_precision),
+                      n_digits_kind=n_digits_kind)
+    sk = BGNSecretKey(params, gk.R, poly_base)
+    encoding.compute_encoding_table(pk)
+    return pk, sk
+
+
+def validate_public_key_parts(n: int, l: int, p: int, P_host,
+                              Q_host) -> None:
+    """Structural A1 invariants of loaded key material: p = l*n - 1 prime
+    with p == 3 (mod 4), l a positive multiple of 4, generators on the
+    curve with coordinates < p and annihilated by n.  The reference's
+    SetBytes path (bgn.go:501-560) checks none of this; a corrupted key
+    file raises here instead of decrypting garbage.  (Membership of Q in
+    the order-q1 subgroup needs the secret factorization.)"""
+    if p != l * n - 1:
+        raise ValueError("invalid key: p != l*n - 1")
+    if p % 4 != 3:
+        raise ValueError("invalid key: p != 3 (mod 4)")
+    if l % 4 != 0 or l <= 0:
+        raise ValueError("invalid key: cofactor l not a positive "
+                         "multiple of 4")
+    if not hm.is_probable_prime(p):
+        raise ValueError("invalid key: p is not prime")
+    for name, pt in (("P", P_host), ("Q", Q_host)):
+        if pt is None:
+            raise ValueError(f"invalid key: generator {name} is the "
+                             "identity")
+        x, y = pt
+        if not (0 <= x < p and 0 <= y < p):
+            raise ValueError(f"invalid key: {name} coordinate >= p")
+        if not hm.on_curve((x, y), p):
+            raise ValueError(f"invalid key: {name} not on the curve")
+        if hm.ec_mul(n, (x, y), p) is not None:
+            raise ValueError(f"invalid key: {name} order does not "
+                             "divide n")
+
+
+def public_key_from_parts(key_bits: int, n: int, l: int, p: int,
+                          msg_space: int, deterministic: bool,
+                          poly_params: PolyEncodingParams,
+                          P_host: Tuple[int, int],
+                          Q_host: Tuple[int, int],
+                          n_digits: str | None = None,
+                          validate: bool = True,
+                          device="cuda") -> BGNPublicKey:
+    """Rebuild a whole public key on `device` from its host parts (the
+    pairing re-binding of UnmarshalBinary, bgn.go:626-666, plus the
+    invariant checks of validate_public_key_parts; validate=False skips
+    them): the Montgomery and RNS contexts, the window tables, the Miller
+    digits and the encoding tables.  n_digits replays the digit encoding
+    keygen chose; without it the chain check runs mod n only (the public
+    view has no q1, q2).  For the parts of a keygen key every tensor
+    equals keygen's."""
+    device = _check_device(device)
+    if validate:
+        validate_public_key_parts(n, l, p, P_host, Q_host)
+    L = lb.num_limbs_for_bits(max(key_bits + _L_MARGIN_BITS,
+                                  p.bit_length()))
+    params = hm.A1Params(q1=0, q2=0, n=n, l=l, p=p)  # public view
+    n_naf, n_digits_kind = _exp_digits(n, key_bits, (n,), force=n_digits)
+    dev = _device_key(key_bits, n, l, p, L, tuple(P_host), tuple(Q_host),
+                      n_naf, hm.tate_pairing(tuple(Q_host), tuple(Q_host),
+                                             params), device)
+    pk = BGNPublicKey(key_bits=key_bits, n=n, l=l, p=p, msg_space=msg_space,
+                      deterministic=deterministic, P_host=tuple(P_host),
+                      Q_host=tuple(Q_host), dev=dev, poly_params=poly_params,
+                      n_digits_kind=n_digits_kind)
+    encoding.compute_encoding_table(pk)
+    return pk
+
+
+def _check_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions")
+    return device
+
+
+def _device_key(key_bits: int, n: int, l: int, p: int, L: int, P_host,
+                Q_host, n_naf, pair_qq, device) -> PublicDeviceKey:
+    """The device half of a public key from host parts: contexts, points,
+    digit vectors, e(Q, Q) and the window tables (RNS residues and
+    limbs)."""
+    ctx = mg.make_mont_ctx(p, L=L, device=device)
+    rns = _make_rns(p, L, device)
+    p_rows = _window_table(P_host, p, key_bits)
+    q_rows = _window_table(Q_host, p, key_bits)
 
     def limb_table(rows):
         return convert.affine_from_host(
             ctx, rows, batch_shape=(len(rows) // _WINDOW_RADIX,
                                     _WINDOW_RADIX))
 
-    dev = PublicDeviceKey(
+    return PublicDeviceKey(
         ctx=ctx, rns=rns,
-        P=convert.point_from_host(ctx, gk.P),
-        Q=convert.point_from_host(ctx, gk.Q),
-        n_bits=lb.int_to_bits(params.n, key_bits),
+        P=convert.point_from_host(ctx, P_host),
+        Q=convert.point_from_host(ctx, Q_host),
+        n_bits=lb.int_to_bits(n, key_bits),
         n_naf=n_naf,
-        l_bits=lb.int_to_bits(params.l, 32),
-        pair_qq=convert.fp2_single_from_host(
-            ctx, hm.tate_pairing(gk.Q, gk.Q, params)),
-        p_win=None if rns is None else _win_rns(params.p, L, p_rows),
-        q_win=None if rns is None else _win_rns(params.p, L, q_rows),
+        l_bits=lb.int_to_bits(l, 32),
+        pair_qq=convert.fp2_single_from_host(ctx, pair_qq),
+        p_win=None if rns is None else _win_rns(p, L, p_rows),
+        q_win=None if rns is None else _win_rns(p, L, q_rows),
         p_tab=limb_table(p_rows),
         q_tab=limb_table(q_rows),
     ).to(device)
-    pk = BGNPublicKey(key_bits=key_bits, n=params.n, l=params.l, p=params.p,
-                      msg_space=msg_space, deterministic=deterministic,
-                      P_host=gk.P, Q_host=gk.Q, dev=dev)
-    sk = BGNSecretKey(params, gk.R, poly_base)
-    return pk, sk
 
 
 def _make_rns(p: int, L: int, device) -> RNSCtx | None:
@@ -630,18 +750,28 @@ def _chain_degenerate(digits, mods) -> bool:
     return False
 
 
-def _exp_digits(e: int, width: int, mods):
+def _exp_digits(e: int, width: int, mods, force=None):
     """Signed MSB-first ladder digits for exponent e: NAF when the chain
     is safe for every point order in `mods`, else plain bits; leading
-    zeros stripped.  Returns (int64 digits, kind in {"naf", "bits"})."""
-    naf = lb.int_to_naf(e, width)
-    if not _chain_degenerate(naf, mods):
-        digits, kind = naf, "naf"
-    else:  # pragma: no cover -- probability ~2^-240 per key
-        digits = lb.int_to_bits(e, width)
-        kind = "bits"
-        if _chain_degenerate(digits, mods):
-            raise ValueError("degenerate addition chain; regenerate key")
+    zeros stripped.  force="naf"/"bits" replays a choice recorded at
+    keygen instead of deciding it again (the public view has no q1, q2,
+    so a check mod n alone could pick NAF for a key whose keygen fell
+    back to bits).  Returns (int64 digits, kind in {"naf", "bits"})."""
+    if force is not None:
+        if force not in ("naf", "bits"):
+            raise ValueError(f"unknown digit encoding {force!r}")
+        digits = (lb.int_to_naf(e, width) if force == "naf"
+                  else lb.int_to_bits(e, width))
+        kind = force
+    else:
+        naf = lb.int_to_naf(e, width)
+        if not _chain_degenerate(naf, mods):
+            digits, kind = naf, "naf"
+        else:  # pragma: no cover -- probability ~2^-240 per key
+            digits = lb.int_to_bits(e, width)
+            kind = "bits"
+            if _chain_degenerate(digits, mods):
+                raise ValueError("degenerate addition chain; regenerate key")
     nz = np.nonzero(digits)[0]
     return (digits[nz[0]:] if nz.size else digits[-1:]), kind
 

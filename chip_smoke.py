@@ -20,8 +20,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
      kernels, every one on the tensor-core product (TC_KERNELS: blocks of
      G lanes, base extensions on the tensor cores: csrc/rns_tc.cuh) for
      each S, which must be > 0, and their shared memory per block;
+     meanwhile a spawned child process builds phase 4e's 2048-bit key on
+     the host (keygen_2048);
   2. keys: 512-bit key, message space 1021, seeded, on the card, plus the
-     decryption tables;
+     decryption tables; then the wait for the child, so that no phase
+     timed on the host clock shares the host with it;
   3. kernels: each of the seven RNS loop kernels and the six step
      kernels at the shapes the paths give it (the step kernels at
      N = batch, dbl_step, add_step, pt_dbl and pt_add also at
@@ -83,7 +86,8 @@ Phases, each of which raises on failure (the script then exits nonzero):
      Every lane decrypted and checked, a few lanes against hostmath with
      the same r replayed; mont_mul must be launched; ops/s of a first and
      a second call;
-  4e. a 2048-bit key (k = 184 at seed 1: the S = 12 kernels): every RNS
+  4e. a 2048-bit key (k = 184 at seed 1: the S = 12 kernels; loaded from
+     the child process of phase 2 and moved to the card): every RNS
      kernel against its plain version at N = big-batch over 32-digit
      strings, then Encrypt -> Mult -> DecryptL2 at big-batch lanes, every
      lane checked;
@@ -117,13 +121,34 @@ Phases, each of which raises on failure (the script then exits nonzero):
      limb-batch lanes, Encrypt and Mult torch.equal to phase 4g's
      limb-mode outputs on the same inputs, every lane decrypted, no RNS
      kernel launched;
+  4i. the poly path on phase 2's key after a round trip of its public
+     key through JSON (public_key_from_json on the card, every tensor
+     equal): encode and encrypt_poly_batch POLY_B = 512 values of 100.1
+     (balanced degree 13, scale 8), 1024 of 7.0 and 1024 seeded
+     integers below 340; the 100.1 batch through bytes (validated, equal);
+     AddPoly, SubPoly, NegPoly, MultConstPoly by 1.0 and -2.5, MultPoly
+     (13 x 13 pairs per poly in one Mult), MakePolyL2 and AddPoly at L2,
+     EvalPoly of the 7.0 and integer batches; the results through bytes
+     again; every coefficient of every lane decrypted (decrypt-batch
+     lanes at a time) against the host convolution / sum / scaling of
+     the plaintext coefficients and every poly decoded from them against
+     its value at %.1f; the 100.1 batch and MultPoly's result also
+     through decrypt_poly_batch, each returned PolyPlaintext checked the
+     same way; lanes against hostmath; polys/s of a first and a second
+     call; the models: encrypted_dot at DOT_D = 64, DOT_B = 128
+     (x, y < 4) torch.equal to Mult + aggregate and decrypted, aggregate
+     at L1, weighted_aggregate on phase 4d's non-deterministic key
+     (re-randomized, decrypted); every kernel of the path must be
+     launched (POLY_PATH);
   5. one call of each op under torch.profiler (the re-randomized Mult and
      L2 Add, the step-mode Mult, Encrypt and both decrypts, and the
      limb-mode Mult and Encrypt included): device busy time, idle share,
      the costliest device kernels, the wrappers' launches and the host's
      cudaFuncSetAttribute and cudaLaunchKernel calls; then the host
      microseconds per launch of each step wrapper at N = 1 (the median of
-     seven rounds of 40 launches).
+     seven rounds of 40 launches); MultPoly (POLY_B polys of 100.1),
+     its GT accumulation alone and encrypted_dot, each with its kernels'
+     launches and time beside the torch-op glue's device ops and time.
 The line before the last is one JSON object {"kernels": [...]} (times,
 launches, bounds; one row per TPU kernel, 17 in all, mont_mul's under
 both TPU forms it replaces); the last line is {"ok": true, "device":
@@ -230,6 +255,16 @@ LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
 # the limb-domain configuration: the digit-domain Miller steps and
 # mont_mul, and none of the 13 RNS kernels
 DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
+# the poly path, its serialization and the models (phase 4i): the
+# kernels of Encrypt (dual_ladder), Mult (miller_loop, pow_loop,
+# fp2_pow_loop), Neg's E_det(0) (window_ladder_tab), the L1 decrypt
+# (ladder_loop) and the limb F_p^2 products of the GT accumulator (mont_mul)
+POLY_PATH = ("miller_loop", "pow_loop", "fp2_pow_loop", "dual_ladder",
+             "window_ladder_tab", "ladder_loop", "mont_mul")
+# phase 4i's shapes: POLY_B polys per batch (bench.py's bench_poly_batched),
+# encrypted_dot over DOT_D coordinates of DOT_B vectors
+POLY_B = 512
+DOT_D, DOT_B = 64, 128
 # the kernels on rns_tc.cuh's tensor-core product (every RNS kernel):
 # phase 1 counts their IMMA instructions
 TC_KERNELS = ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
@@ -419,6 +454,21 @@ def sass_counts(obj: Path, nvcc: str, opcode: str) -> dict:
     return counts
 
 
+def keygen_2048(path: str, seed: int, repo: str) -> None:
+    """Child process of phases 1-2: phase 4e's 2048-bit key and decryption
+    tables, built on the host (device="cpu": ~50 s of pure-Python number
+    theory and window tables) while phase 1 builds the kernels, saved to
+    path (with its own seconds) for phase 4e to load and move to the
+    card."""
+    t0 = time.time()
+    sys.path.insert(0, repo)
+    import torch
+    from bgn_torch import scheme
+    pk, sk = scheme.keygen(2048, 1021, rng=random.Random(seed), device="cpu")
+    tables = pk.setup_decryption(sk, rng=random.Random(seed))
+    torch.save((pk, sk, tables, time.time() - t0), path)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8192)
@@ -478,6 +528,17 @@ def main() -> None:
         log(f"phase {name}: {now - phase_t:.1f} s (total "
             f"{now - t_start:.1f} s)")
         phase_t = now
+
+    # phase 4e's 2048-bit key is built on the host by a child process
+    # during phases 1-2 (daemon: it ends with this script)
+    import multiprocessing
+    key_path = repo / "build" / "smoke_key2048.pt"
+    key_path.parent.mkdir(parents=True, exist_ok=True)
+    t_key3 = time.time()
+    key_proc = multiprocessing.get_context("spawn").Process(
+        target=keygen_2048, args=(str(key_path), args.seed, str(repo)),
+        daemon=True)
+    key_proc.start()
 
     # -- 1. the card and the build ------------------------------------
     card = subprocess.run(
@@ -540,6 +601,14 @@ def main() -> None:
     k, L = rns.k, ctx.L
     log(f"keys: 512-bit, msg space 1021, k = {k} channels per base, "
         f"L = {L} limbs, {time.time() - t0:.1f} s")
+    t0 = time.time()
+    key_proc.join()
+    if key_proc.exitcode != 0:
+        raise RuntimeError(f"the 2048-bit keygen process failed "
+                           f"(exit {key_proc.exitcode})")
+    log(f"keys: the 2048-bit keygen child, started before phase 1, done "
+        f"{time.time() - t_key3:.1f} s after its start "
+        f"({time.time() - t0:.1f} s waited here)")
     phase_done("2 (keys)")
 
     # -- 3. kernels against their plain versions -------------------------
@@ -1111,10 +1180,11 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, time.time() - t
 
-    def decrypt_all(sk, pk, tables, ct, want, label, Bd):
+    def decrypt_all(sk, pk, tables, ct, want, label, Bd, out=None):
         """Decrypt every lane, Bd at a time, and check it; returns the
-        seconds of the first chunk."""
-        got, t_first = [], None
+        seconds of the first chunk.  out: a list the decrypted values are
+        appended to."""
+        got, t_first = [] if out is None else out, None
         for s in range(0, len(want), Bd):
             vals, t = timed(lambda s=s: sk.decrypt(ct[s:s + Bd], pk, tables))
             t_first = t if t_first is None else t_first
@@ -1387,13 +1457,16 @@ def main() -> None:
 
     # -- 4e. a 2048-bit key: the S = 12 kernels ---------------------------
     t0 = time.time()
-    pk3, sk3 = scheme.keygen(2048, 1021, rng=random.Random(args.seed),
-                             device="cuda")
-    tables3 = pk3.setup_decryption(sk3, rng=random.Random(args.seed))
+    pk3, sk3, tables3, t_child = torch.load(key_path, weights_only=False)
+    key_path.unlink()
+    pk3.dev.to(dev)
+    tables3 = tables3.to(dev)
     k3 = pk3.dev.rns.k
     log(f"keys: 2048-bit, msg space 1021, k = {k3} channels per base "
-        f"(S = {cuda_rns.slots_for(k3)}), L = {pk3.dev.ctx.L} limbs, "
-        f"{time.time() - t0:.1f} s (host)")
+        f"(S = {cuda_rns.slots_for(k3)}), L = {pk3.dev.ctx.L} limbs; built "
+        f"on the host by the child process of phases 1-2 in "
+        f"{t_child:.1f} s, loaded and moved to the card in "
+        f"{time.time() - t0:.1f} s")
     Bb = args.big_batch
     kernel_checks(pk3, sk3, Bb, Bb, args.seed + 6, trunc=32)
     brng = random.Random(args.seed + 7)
@@ -1645,6 +1718,231 @@ def main() -> None:
     del pkn, skn, a_h, b_h, prod_h
     phase_done("4h (key without an RNS context)")
 
+    # -- 4i. the poly path, serialized, and the models -------------------
+    from bgn_torch import encoding, polyct as pc, serialize as ser
+    from bgn_torch.models import aggregation as agg, encrypted_dot as edot
+    zero_counts()
+    t0 = time.time()
+    pkp = ser.public_key_from_json(ser.public_key_to_json(pk), device="cuda")
+    sd, sdp = pk.dev.state_dict(), pkp.dev.state_dict()
+    if sd.keys() != sdp.keys() or not all(torch.equal(sd[nm], sdp[nm])
+                                          for nm in sd) \
+            or (pkp.dev.rns.k, pkp.dev.rns.h, pkp.dev.ctx.p_host) \
+            != (rns.k, rns.h, ctx.p_host):
+        raise AssertionError("the key reloaded from JSON is not phase 2's")
+    log(f"poly: phase 2's key through public_key_to_json -> "
+        f"public_key_from_json on the card, all {len(sd)} tensors equal "
+        f"({time.time() - t0:.1f} s, host)")
+    Bp = POLY_B
+    prng = random.Random(args.seed + 9)
+
+    def poly_decrypt(label, pct, coeffs, value, whole=False):
+        """Every coefficient of every lane, Bd lanes at a time (as
+        decrypt_all), against the host coefficient lists (one per poly);
+        then each poly decoded from the decrypted coefficients (poly_eval)
+        against value at %.1f, as poly_test.go compares.  whole: also
+        decrypt_poly_batch, the client's entry point (its failed lanes
+        would come back as 0), in one call, each returned PolyPlaintext's
+        coefficients, degree and scale against the host's and decoded the
+        same way.  Returns the seconds of the first chunk and of the
+        decrypt_poly_batch call (None without whole)."""
+        d, nb, sf = *pct.ct.batch_shape, pct.scale_factor
+        want = [c[i] if i < len(c) else 0 for i in range(d) for c in coeffs]
+        got = []
+        t = decrypt_all(sk, pkp, tables, pct.ct.reshape((d * nb,)), want,
+                        f"poly {label} (degree {d}, B={nb})", Bd, out=got)
+        decoded = {"decrypt-batch chunks": [encoding.PolyPlaintext(
+            pkp, [got[i * nb + b] for i in range(d)], d, sf)
+            for b in range(nb)]}
+        t_whole = None
+        if whole:
+            pts, t_whole = timed(lambda: pc.decrypt_poly_batch(sk, pct, pkp,
+                                                               tables))
+            bad = [b for b, p in enumerate(pts)
+                   if (p.coefficients, p.degree, p.scale_factor)
+                   != ([want[i * nb + b] for i in range(d)], d, sf)]
+            if len(pts) != nb or bad:
+                raise AssertionError(f"poly {label}: decrypt_poly_batch gives "
+                                     f"{len(pts)} polys, {len(bad)} wrong")
+            decoded["decrypt_poly_batch"] = pts
+        for how, pts in decoded.items():
+            vals = [p.poly_eval() for p in pts]
+            bad = [b for b, v in enumerate(vals)
+                   if f"{v:.1f}" != f"{value:.1f}"]
+            if bad:
+                raise AssertionError(f"poly {label} ({how}): {len(bad)} lanes "
+                                     f"decode to {vals[bad[0]]:.4f}, not "
+                                     f"{value:.1f}")
+        log(f"poly {label}: every lane decodes to {value:.1f} "
+            f"({', '.join(decoded)})")
+        return t, t_whole
+
+    def conv(u, v):
+        return [sum(u[i] * v[j - i] for i in range(len(u)) if 0 <= j - i
+                    < len(v)) for j in range(len(u) + len(v))]
+
+    # encode and encrypt: B polys of 100.1 (balanced degree 13, scale 8),
+    # 2B of 7.0 (degree 3) and 2B seeded integers below 340 (scale 0)
+    t0 = time.time()
+    pt_x = [encoding.new_poly_plaintext(pkp, 100.1) for _ in range(Bp)]
+    pt_s = [encoding.new_poly_plaintext(pkp, 7.0) for _ in range(2 * Bp)]
+    ints = [prng.randrange(340) for _ in range(2 * Bp)]
+    pt_i = [encoding.new_poly_plaintext(pkp, float(v)) for v in ints]
+    t_encode = time.time() - t0
+    X, t_encp = timed(lambda: pc.encrypt_poly_batch(pk, pt_x, rng=prng))
+    S, _ = timed(lambda: pc.encrypt_poly_batch(pk, pt_s, rng=prng))
+    I_, _ = timed(lambda: pc.encrypt_poly_batch(pk, pt_i, rng=prng))
+    log(f"poly: encoded {4 * Bp} values in {t_encode:.2f} s (host); "
+        f"batches {X.ct.batch_shape}, {S.ct.batch_shape}, "
+        f"{I_.ct.batch_shape}; scale factors {X.scale_factor}, "
+        f"{S.scale_factor}, {I_.scale_factor}")
+    # serialize: the client's bytes, loaded (validated) on the server
+    blob, t_ser = timed(lambda: ser.poly_ciphertext_to_bytes(pk, X))
+    Xs, t_load = timed(lambda: ser.poly_ciphertext_from_bytes(pkp, blob,
+                                                              device="cuda"))
+    if not ct_equal(Xs.ct, X.ct) or (Xs.degree, Xs.scale_factor) != \
+            (X.degree, X.scale_factor):
+        raise AssertionError("poly ciphertext bytes round trip != original")
+    log(f"poly: {len(blob)} bytes for the 100.1 batch, to_bytes "
+        f"{t_ser:.2f} s, from_bytes (validated) {t_load:.2f} s, equal")
+    cx, cs = pt_x[0].coefficients, pt_s[0].coefficients
+    ci = [p.coefficients for p in pt_i]
+    t_decp, t_decb1 = poly_decrypt("100.1 after the bytes round trip", Xs,
+                                   [cx] * Bp, 100.1, whole=True)
+    poly_decrypt("7.0", S, [cs] * 2 * Bp, 7.0)
+    decrypt_all(sk, pkp, tables, I_.ct.reshape((-1,)),
+                [c[i] if i < len(c) else 0 for i in range(I_.degree)
+                 for c in ci], f"poly integers (degree {I_.degree})", Bd)
+    # the server's ops on the reloaded key
+    A, t_addp = timed(lambda: pc.add_poly(pkp, Xs, Xs))
+    Sb, _ = timed(lambda: pc.sub_poly(pkp, A, Xs))
+    Ng, _ = timed(lambda: pc.neg_poly(pkp, Xs))
+    C1, t_mcp = timed(lambda: pc.mult_const_poly(pkp, Xs, 1.0))
+    C2, _ = timed(lambda: pc.mult_const_poly(pkp, Xs, -2.5))
+    M, t_multp = timed(lambda: pc.mult_poly(pkp, Xs, Xs))
+    U, _ = timed(lambda: pc.make_poly_l2(pkp, Xs))
+    AL2, _ = timed(lambda: pc.add_poly(pkp, M, U))
+    ES, t_evalp = timed(lambda: pc.eval_poly(pkp, S))
+    EI, _ = timed(lambda: pc.eval_poly(pkp, I_))
+    u1 = encoding.new_unbalanced_plaintext(pkp, 1.0).coefficients
+    u25 = [-c for c in encoding.new_unbalanced_plaintext(
+        pkp, 2.5).coefficients]
+    # AddPoly aligns MakePolyL2's scale 8 to MultPoly's 16: MultConstPoly
+    # by 3^8, whose unbalanced encoding x^8 shifts the coefficients
+    aligned = conv(conv([1], cx), encoding.new_unbalanced_plaintext(
+        pkp, 3.0 ** 8).coefficients)
+    log(f"poly: AddPoly, SubPoly, NegPoly (degree {A.degree}), "
+        f"MultConstPoly by 1.0 (degree {C1.degree}) and -2.5 (degree "
+        f"{C2.degree}, {X.degree * (C2.degree - X.degree)} x {Bp} "
+        f"MultConst lanes), MultPoly (degree {M.degree}, "
+        f"{X.degree ** 2} x {Bp} = {X.degree ** 2 * Bp} pairings), "
+        f"MakePolyL2 and AddPoly at L2, EvalPoly of the 7.0 and integer "
+        f"batches")
+    # the results' bytes: the server's files, loaded by the key holder
+    back = {}
+    for name, r in (("MultPoly", M), ("AddPoly L2", AL2), ("EvalPoly", ES)):
+        pct = r if isinstance(r, pc.PolyCiphertext) else \
+            pc.PolyCiphertext(r, 1, 0)
+        back[name] = ser.poly_ciphertext_from_bytes(
+            pk, ser.poly_ciphertext_to_bytes(pkp, pct), device="cuda")
+        if not ct_equal(back[name].ct, pct.ct):
+            raise AssertionError(f"{name} bytes round trip != original")
+    log("poly: MultPoly, AddPoly L2 and EvalPoly results through bytes "
+        "(validated), equal")
+    for label, pct, coeffs, value in (
+            ("AddPoly (x + x)", A, [[2 * c for c in cx]] * Bp, 200.2),
+            ("SubPoly ((x + x) - x)", Sb, [cx] * Bp, 100.1),
+            ("NegPoly", Ng, [[-c for c in cx]] * Bp, -100.1),
+            ("MultConstPoly by 1.0", C1, [conv(cx, u1)] * Bp, 100.1),
+            ("MultConstPoly by -2.5", C2, [conv(cx, u25)] * Bp, -250.25),
+            ("MakePolyL2", U, [conv([1], cx)] * Bp, 100.1),
+            ("AddPoly L2 (after bytes)", back["AddPoly L2"],
+             [[a + b for a, b in zip(conv(cx, cx), aligned + [0] * M.degree)]]
+             * Bp, 100.1 * 100.1 + 100.1)):
+        poly_decrypt(label, pct, coeffs, value)
+    poly_decrypt("MultPoly (after bytes)", back["MultPoly"],
+                 [conv(cx, cx)] * Bp, 100.1 * 100.1, whole=True)
+    decrypt_all(sk, pkp, tables, back["EvalPoly"].ct.reshape((-1,)),
+                [7] * 2 * Bp, "poly EvalPoly of 7.0 (after bytes)", Bd)
+    decrypt_all(sk, pkp, tables, EI.reshape((-1,)), ints,
+                "poly EvalPoly of the integers", Bd)
+    # a few lanes against hostmath: E(c) of the first coefficients and one
+    # MultPoly coefficient as the product of pairings
+    h0 = convert.affine_to_host(ctx, X.ct[0][:2].data)
+    h1 = convert.affine_to_host(ctx, X.ct[1][:2].data)
+    m1 = convert.fp2_to_host(ctx, M.ct[1][:2].data)
+    for lane in range(2):
+        want = hm.fp2_mul(hm.tate_pairing(h0[lane], h1[lane], gk.params),
+                          hm.tate_pairing(h1[lane], h0[lane], gk.params),
+                          gk.params.p)
+        if m1[lane] != want:
+            raise AssertionError(f"MultPoly coefficient 1, lane {lane} != "
+                                 "the host product of pairings")
+        if hm.golden_decrypt_l1(gk, h0[lane]) != cx[0]:
+            raise AssertionError(f"coefficient 0, lane {lane}: host decrypt")
+    log("poly: lanes 0, 1 equal the host oracle (coefficient 0's decrypt, "
+        "MultPoly coefficient 1 = e(c0, c1) e(c1, c0))")
+    # rates: a second call of each op at B = Bp (the 100.1 batch)
+    _, t_encp2 = timed(lambda: pc.encrypt_poly_batch(pk, pt_x, rng=prng))
+    _, t_multp2 = timed(lambda: pc.mult_poly(pkp, Xs, Xs))
+    _, t_mcp2 = timed(lambda: pc.mult_const_poly(pkp, Xs, 1.0))
+    _, t_addp2 = timed(lambda: pc.add_poly(pkp, Xs, Xs))
+    _, t_evalp1 = timed(lambda: pc.eval_poly(pkp, Xs))
+    _, t_evalp2 = timed(lambda: pc.eval_poly(pkp, Xs))
+    _, t_decb2 = timed(lambda: pc.decrypt_poly_batch(sk, Xs, pkp, tables))
+    for op, t1, t2, note in (
+            ("EncryptPoly", t_encp, t_encp2, ", host randomness included"),
+            ("MultPoly", t_multp, t_multp2, ""),
+            ("MultConstPoly (1.0)", t_mcp, t_mcp2, ""),
+            ("AddPoly", t_addp, t_addp2, ""),
+            ("EvalPoly", t_evalp1, t_evalp2, ""),
+            ("DecryptPoly (decrypt_poly_batch, one call)", t_decb1, t_decb2,
+             "")):
+        log(f"{op} {Bp / t1:.1f} polys/s first call, {Bp / t2:.1f} polys/s "
+            f"second call (B={Bp} polys of 100.1, degree {X.degree}{note}) "
+            f"[{card}]")
+    log(f"DecryptPoly in decrypt-batch chunks: {Bd / t_decp:.1f} "
+        f"coefficients/s first chunk (B={Bd}) [{card}]")
+    # models: encrypted_dot at D = 64, B = 128, x, y < 4 (<x, y> <= 576)
+    D, Bm = DOT_D, DOT_B
+    vrng = random.Random(args.seed + 10)
+    xv = [[vrng.randrange(4) for _ in range(D)] for _ in range(Bm)]
+    yv = [[vrng.randrange(4) for _ in range(D)] for _ in range(Bm)]
+    flat_x = [xv[b][i] for i in range(D) for b in range(Bm)]
+    flat_y = [yv[b][i] for i in range(D) for b in range(Bm)]
+    dots = [sum(u * v for u, v in zip(xv[b], yv[b])) for b in range(Bm)]
+    xd = pk.encrypt(flat_x, rng=vrng).reshape((D, Bm))
+    yd = pk.encrypt(flat_y, rng=vrng).reshape((D, Bm))
+    dot, t_dot = timed(lambda: edot.encrypted_dot(pkp, xd, yd))
+    ref, t_ref = timed(lambda: agg.aggregate(pkp, pkp.mult(xd, yd)))
+    if not torch.equal(dot.data, ref.data):
+        raise AssertionError("encrypted_dot != Mult + aggregate")
+    decrypt_all(sk, pkp, tables, dot, dots, f"encrypted_dot (D={D}, "
+                f"B={Bm})", Bd)
+    _, t_dot2 = timed(lambda: edot.encrypted_dot(pkp, xd, yd))
+    l1sum, t_agg = timed(lambda: agg.aggregate(pkp, xd))
+    decrypt_all(sk, pkp, tables, l1sum, [sum(u) for u in xv],
+                f"aggregate L1 (N={D}, B={Bm})", Bd)
+    xr_ = pkr.encrypt(flat_x, rng=vrng).reshape((D, Bm))
+    yr_ = pkr.encrypt(flat_y, rng=vrng).reshape((D, Bm))
+    fused = edot.encrypted_dot(pkr, xr_, yr_)
+    wag, t_wag = timed(lambda: agg.weighted_aggregate(pkr, xr_, yr_))
+    if torch.equal(wag.data, fused.data):
+        raise AssertionError("weighted_aggregate (rng=None) of a "
+                             "non-deterministic key is not re-randomized")
+    decrypt_all(skr, pkr, tablesr, wag, dots, "weighted_aggregate "
+                "(non-deterministic key, rng=None: fused, re-randomized)", Bd)
+    log(f"models: encrypted_dot equals Mult + aggregate on all {Bm} "
+        f"outputs; weighted_aggregate re-randomizes the fused value")
+    log(f"encrypted_dot {Bm / t_dot:.1f} outputs/s first call, "
+        f"{Bm / t_dot2:.1f} outputs/s second call; Mult + aggregate "
+        f"{Bm / t_ref:.1f} outputs/s; aggregate L1 {Bm / t_agg:.1f} "
+        f"outputs/s; weighted_aggregate (re-randomized) {Bm / t_wag:.1f} "
+        f"outputs/s (D={D}, B={Bm}) [{card}]")
+    launches_poly = read_counts("poly", POLY_PATH)
+    del A, Sb, Ng, C1, C2, U, AL2, back, xr_, yr_, fused, wag
+    phase_done("4i (poly path, serialization, models)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
@@ -1675,6 +1973,31 @@ def main() -> None:
             log(f"  limb-mode Mult: the digit steps {digit_ms:.1f} ms of "
                 f"{busy:.1f} ms busy ({100 * digit_ms / busy:.1f} %), idle "
                 f"share {1 - busy / wall:.3f} [{card}]")
+    # the poly path and the models: the kernels beside the torch-op glue
+    # (the GT accumulation, with its skew gather, profiled alone on a
+    # [2, L, d*d, B] batch of GT values of MultPoly's shape)
+    d = Xs.degree
+    prods_like = M.ct.data[:, :, :d].repeat(1, 1, d, 1).contiguous()
+    prof = {}
+    for label, fn in (
+            (f"MultPoly (B={Bp}, 100.1)", lambda: pc.mult_poly(pkp, Xs, Xs)),
+            ("MultPoly's GT accumulation (skew gather + fold)",
+             lambda: pc._poly_accumulate_l2(pkp.dev, prods_like, d, d)),
+            (f"encrypted_dot (D={D}, B={Bm})",
+             lambda: edot.encrypted_dot(pkp, xd, yd))):
+        wall, busy, by_name = profile_op(torch, label, fn, card, wrappers)
+        k_ms = sum(ms for nm, (ms, _) in by_name.items() if "bgn_" in nm)
+        k_n = sum(n for nm, (_, n) in by_name.items() if "bgn_" in nm)
+        n_all = sum(n for _, n in by_name.values())
+        prof[label] = (busy, n_all)
+        log(f"  {label}: {k_n} kernel launches {k_ms:.1f} ms "
+            f"({100 * k_ms / max(busy, 1e-9):.1f} % of busy), glue "
+            f"{n_all - k_n} device ops {busy - k_ms:.1f} ms; wall "
+            f"{wall:.1f} ms [{card}]")
+    (mb, mn), (ab, an) = list(prof.values())[:2]
+    log(f"  MultPoly: its GT accumulation is {an} of {mn} device ops "
+        f"({100 * an / mn:.1f} %) and {ab:.1f} of {mb:.1f} ms busy "
+        f"({100 * ab / mb:.1f} %) [{card}]")
     # host time per step launch at N = 1 (what a lone chain of the
     # per-step configuration, as step-mode Encrypt's inversions, waits on)
     o = [rns.one_rns.expand(2 * k, 1).contiguous() for _ in range(9)]
@@ -1702,8 +2025,8 @@ def main() -> None:
             paths = ("limb-domain",)
         else:
             launches = (launches_main[name] + launches_l1[name]
-                        + launches_limb[name])
-            paths = ("main", "L1", "limb")
+                        + launches_limb[name] + launches_poly[name])
+            paths = ("main", "L1", "limb", "poly")
         splits = {}
         for path in paths:
             for split, counts_by in splits_of[path][name].items():
@@ -1722,7 +2045,8 @@ def main() -> None:
                                  "2048": launches_2048[name],
                                  "step": launches_step[name],
                                  "limb_domain": launches_digit[name],
-                                 "no_rns": launches_norns[name]},
+                                 "no_rns": launches_norns[name],
+                                 "poly": launches_poly[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

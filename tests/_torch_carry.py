@@ -36,8 +36,12 @@ def port_public_key(pk, device="cpu", with_rns=True):
         ctx, rns, _pt(d.P), _pt(d.Q), np.asarray(d.n_bits),
         np.asarray(d.n_naf), np.asarray(d.l_bits), np.asarray(d.pair_qq),
         p_win_rns, q_win_rns, _pt(d.p_win), _pt(d.q_win), device)
-    return cj.public_key(pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space,
-                         pk.deterministic, pk.P_host, pk.Q_host, dev)
+    pp = pk.poly_params
+    return cj.public_key(
+        pk.key_bits, pk.n, pk.l, pk.p, pk.msg_space, pk.deterministic,
+        pk.P_host, pk.Q_host, dev,
+        poly_params=(pp.poly_base, pp.fp_scale_base, pp.fp_precision),
+        n_digits_kind=pk.n_digits_kind)
 
 
 def port_tables(tables, device="cpu"):
