@@ -53,6 +53,12 @@ def point_from_host(ctx: MontCtx, P: HostPoint) -> AffinePoint:
     return AffinePoint(_dev(ctx, x), _dev(ctx, y), _dev(ctx, inf))
 
 
+def fp2_from_host(ctx: MontCtx, vals: Sequence[HostFp2]) -> torch.Tensor:
+    """Host (re, im) tuples -> [2, L, B] Montgomery limbs."""
+    return _dev(ctx, np.stack([_to_mont_limbs(ctx, [v[0] for v in vals]),
+                               _to_mont_limbs(ctx, [v[1] for v in vals])]))
+
+
 def fp2_single_from_host(ctx: MontCtx, v: HostFp2) -> torch.Tensor:
     """Host (re, im) -> [2, L] Montgomery limbs."""
     z = np.stack([_to_mont_limbs(ctx, [v[0]])[:, 0],

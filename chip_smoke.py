@@ -34,12 +34,18 @@ Phases, each of which raises on failure (the script then exits nonzero):
      state (X = Y = 0, Z = one) and both G1 steps on identity-base lanes;
      fp2_pow_step also from an F_p^2 chain's start (one, 0) and with the
      conjugate operand of a -1 digit;
-     dual_ladder at N = batch, batch - 1 and 1, its first lanes m = 0,
-     r = 0, m < 0 and the identity m = r = 0, whose Z must be 0;
+     dual_ladder at N = batch, batch - 1, decrypt-batch (the decryption
+     proofs of phase 4j) and 1, its first lanes m = 0, r = 0, m < 0 and
+     the identity m = r = 0, whose Z must be 0, and on phase 2's key at
+     the proof-of-knowledge prover's shape (m < n: one batch of
+     decrypt-batch lanes of m < 340 with r < n, then as many nonces
+     m < n with r = 0) at N = 2 decrypt-batch, 2 decrypt-batch - 1 and 1;
      window_ladder_tab at N = batch, batch - 1 and 1 on P's table over
-     m < 340 and m < n, its first lanes m = 0 (the identity), 256 and
-     255 (one live window), also on all-zero digits (E_det(0)) and on
-     Q's table, Z = 0 exactly where no window is live; window_ladder
+     m < 340 and m < n (the latter also at N = decrypt-batch and 8, the
+     proof-of-knowledge verify's P^DL in phase 4j), its first lanes m = 0
+     (the identity), 256 and 255 (one live window), also on all-zero
+     digits (E_det(0)) and on Q's table, Z = 0 exactly where no window is
+     live; window_ladder
      (on no path) at N = batch, batch - 1 and 1 on streams gathered from
      P's table: window_ladder_tab's m < n and m < 340 digits (equal to
      window_ladder_tab too), every window dead, and whole blocks of G
@@ -64,7 +70,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      L = 64 (the widest the fused dispatch sends, 2L + 1 = 129) at N = 512
      over random canonical digits modulo a 1000-bit prime (the register
      form), and in the loop form at L = 35 (a 540-bit prime) and L = 6 (a
-     64-bit prime) at N = 512;
+     64-bit prime) at N = 512; at the synthesized 64-bit key of phase
+     4j's conformance vectors, dual_ladder at N = 8, 7 and 1 over the
+     vectors' (m, r) and pow_loop at N = 7 and 1;
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -85,7 +93,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      ladder) -> -m; MultConst L2; encrypt_device with a seeded generator.
      Every lane decrypted and checked, a few lanes against hostmath with
      the same r replayed; mont_mul must be launched; ops/s of a first and
-     a second call;
+     a second call (of one call for ONE_CALL_4D);
   4e. a 2048-bit key (k = 184 at seed 1: the S = 12 kernels; loaded from
      the child process of phase 2 and moved to the card): every RNS
      kernel against its plain version at N = big-batch over 32-digit
@@ -102,8 +110,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (or by window count);
   4g. the limb-domain configuration, BGNParams(rns_miller="0"), on phase
      2's key: Encrypt -> Mult (the fused Miller loop through the two digit
-     kernels) -> DecryptL2 at batch lanes on phase 4's inputs, Encrypt
-     and Mult torch.equal to phase 4's outputs; EncryptDeterministic,
+     kernels) at batch lanes on phase 4's inputs, Encrypt and Mult
+     torch.equal to phase 4's outputs, -> DecryptL2 of the first
+     decrypt-batch lanes; EncryptDeterministic,
      Add, Sub, Neg, MultConst (L1 with negative k, L2), MakeL2 and the L1
      decrypt at decrypt-batch lanes, each torch.equal to the default
      configuration's output on the same inputs; phase 4d's
@@ -130,7 +139,9 @@ Phases, each of which raises on failure (the script then exits nonzero):
      (13 x 13 pairs per poly in one Mult), MakePolyL2 and AddPoly at L2,
      EvalPoly of the 7.0 and integer batches; the results through bytes
      again; every coefficient of every lane decrypted (decrypt-batch
-     lanes at a time) against the host convolution / sum / scaling of
+     lanes at a time; of the results of the ops on the 100.1 batch, whose
+     polys are all alike, the first POLY_CHECK polys) against the host
+     convolution / sum / scaling of
      the plaintext coefficients and every poly decoded from them against
      its value at %.1f; the 100.1 batch and MultPoly's result also
      through decrypt_poly_batch, each returned PolyPlaintext checked the
@@ -140,6 +151,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
      at L1, weighted_aggregate on phase 4d's non-deterministic key
      (re-randomized, decrypted); every kernel of the path must be
      launched (POLY_PATH);
+  4j. the Go reference's wire format and the ZK gadgets: phase 2's public
+     key through public_key_to_gob -> public_key_from_gob on the card
+     (every part and tensor equal; key_bits is n's bit length), then
+     decrypt-batch L1 lanes of phase 4's Encrypt output, as many L2 lanes
+     of its Mult output and GOB_POLYS polys of phase 4i's 100.1 batch
+     through gob, each torch.equal to what went in and decrypted right;
+     the synthesized 64-bit conformance vectors verified with the device
+     check on the card (7 encryption vectors, 7 op vectors, 7 device
+     encryptions byte-equal); on phase 2's key at decrypt-batch lanes of
+     phase 4's (m, r): decryption proofs (all true, a tampered randomness
+     false), proofs of plaintext knowledge proved and verified on the
+     fused RNS route in one verify (every honest lane true, the limb
+     fallback not run; a tampered DL, a swapped nonce and a swapped
+     ciphertext false), every device Fiat-Shamir digest equal to
+     hashlib's over serialize.point_bytes, and a small batch with an
+     identity nonce that goes to the limb verify at once (its answers
+     the truth); proofs/s and digests/s, and 4j's seconds by part;
+     window_ladder_tab, pow_loop, mont_mul and dual_ladder must be
+     launched (GADGET_PATH);
   5. one call of each op under torch.profiler (the re-randomized Mult and
      L2 Add, the step-mode Mult, Encrypt and both decrypts, and the
      limb-mode Mult and Encrypt included): device busy time, idle share,
@@ -261,10 +291,23 @@ DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
 # (ladder_loop) and the limb F_p^2 products of the GT accumulator (mont_mul)
 POLY_PATH = ("miller_loop", "pow_loop", "fp2_pow_loop", "dual_ladder",
              "window_ladder_tab", "ladder_loop", "mont_mul")
+# phase 4j (the Go wire format, conformance and the gadgets): the kernels
+# of Encrypt (dual_ladder, normalize's pow_loop), the verify's P^DL
+# (window_ladder_tab) and the digest's Montgomery exit and the limb
+# fallback (mont_mul); GOB_POLYS polys of the 100.1 batch through gob
+GADGET_PATH = ("window_ladder_tab", "pow_loop", "mont_mul", "dual_ladder")
+GOB_POLYS = 4
 # phase 4i's shapes: POLY_B polys per batch (bench.py's bench_poly_batched),
 # encrypted_dot over DOT_D coordinates of DOT_B vectors
 POLY_B = 512
 DOT_D, DOT_B = 64, 128
+# polys decrypted of each op's result on the 100.1 batch (all B alike);
+# the batch itself, MultPoly's result and the 7.0 and integer batches
+# are decrypted whole
+POLY_CHECK = 128
+# phase 4d's ops timed in one call only, no second (5-14 s each on the
+# limbs; phase 4j's time): the rest keep their second call
+ONE_CALL_4D = ("AddL2", "SubL2", "MultConst n-1", "MultConstL2")
 # the kernels on rns_tc.cuh's tensor-core product (every RNS kernel):
 # phase 1 counts their IMMA instructions
 TC_KERNELS = ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
@@ -666,6 +709,43 @@ def main() -> None:
         log(f"chain of {n} step launches equals {name} {shape} "
             f"({key_bits}-bit)")
 
+    def dual_ladder_checks(pk, dig_np, m_neg, Jm, lanes, ident_lane):
+        """dual_ladder against its plain version at each N of lanes over
+        the digits dig_np [Jm + Jr, N] and m_neg (the identity lane's Z
+        must be 0); the output at lanes[0].  The bound counts the live
+        windows' additions, the combines of lanes with both chains live
+        and the live windows' rows."""
+        rns, dk, key_bits = pk.dev.rns, pk.dev, pk.key_bits
+        k, state = rns.k, 2 * rns.k * f32
+        dig = torch.as_tensor(dig_np, device=dev)
+        mneg = torch.as_tensor(m_neg, device=dev)
+        e1, m1 = ops_of(k, {"add_pt": 1})
+        e2, m2 = ops_of(k, {"jac_add_full": 1})
+        Jt = dig_np.shape[0]
+        first = None
+        for n in dict.fromkeys(lanes):
+            live = dig_np[:, :n] != 0
+            adds = 0
+            for rows in (live[:Jm], live[Jm:]):
+                adds += int(np.maximum(rows.sum(axis=0) - 1, 0).sum())
+            combines = int((live[:Jm].any(axis=0)
+                            & live[Jm:].any(axis=0)).sum())
+            d_n, mn_n = dig[:, :n].contiguous(), mneg[:n].contiguous()
+            out = check(
+                "dual_ladder", f"B={n}, Jm={Jm}, Jt={Jt}",
+                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder(
+                    rns, dk.p_win, dk.q_win, Jm, d, mn),
+                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder_plain(
+                    rns, dk.p_win, dk.q_win, Jm, d, mn),
+                (adds * e1 + combines * e2, adds * m1 + combines * m2),
+                int(live.sum()) * 2 * state + (Jt + 1) * n * 4
+                + 3 * n * state, key_bits)
+            if n > ident_lane and bool((out[2][:, ident_lane] != 0).any()):
+                raise AssertionError(f"dual_ladder B={n}: the identity "
+                                     "lane's Z is not 0")
+            first = out if first is None else first
+        return first
+
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder, window_ladder_tab (also at B - 1 and 1; also on
@@ -698,42 +778,16 @@ def main() -> None:
         r_digits, _ = scheme._signed_digits(rs, pk.n)
         Jm = m_digits.shape[0]
         dig_np = np.concatenate([m_digits, r_digits], axis=0)
-        dig = torch.as_tensor(dig_np, device=dev)
-        mneg = torch.as_tensor(m_neg, device=dev)
         n_naf = dk.n_naf.cpu().numpy()[:trunc]
         pm2 = ctx.pm2_bits.cpu().numpy()[:trunc]
         l_bits = dk.l_bits.cpu().numpy()[:trunc]
         q1_naf = np.asarray(sk.q1_naf)[:trunc]
 
-        # dual ladder (Encrypt core) at B lanes, and at B - 1 and 1 (a
-        # ragged and a short last block of lanes); the bound counts the
-        # live windows' additions, the combines of lanes with both chains
-        # live and the live windows' rows
+        # dual ladder (Encrypt core) at B lanes, and at B - 1, Bd (the
+        # decryption-proof check) and 1 (a ragged and a short last block)
+        X, Y, Z = dual_ladder_checks(pk, dig_np, m_neg, Jm,
+                                     (B, B - 1, Bd, 1), ident_lane)
         e1, m1 = ops_of(k, {"add_pt": 1})
-        e2, m2 = ops_of(k, {"jac_add_full": 1})
-        Jt = dig_np.shape[0]
-        for n in dict.fromkeys((B, B - 1, 1)):
-            live = dig_np[:, :n] != 0
-            adds = 0
-            for rows in (live[:Jm], live[Jm:]):
-                adds += int(np.maximum(rows.sum(axis=0) - 1, 0).sum())
-            combines = int((live[:Jm].any(axis=0)
-                            & live[Jm:].any(axis=0)).sum())
-            d_n, mn_n = dig[:, :n].contiguous(), mneg[:n].contiguous()
-            out = check(
-                "dual_ladder", f"B={n}, Jm={Jm}, Jt={Jt}",
-                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder(
-                    rns, dk.p_win, dk.q_win, Jm, d, mn),
-                lambda d=d_n, mn=mn_n: cuda_rns.dual_ladder_plain(
-                    rns, dk.p_win, dk.q_win, Jm, d, mn),
-                (adds * e1 + combines * e2, adds * m1 + combines * m2),
-                int(live.sum()) * 2 * state + (Jt + 1) * n * 4
-                + 3 * n * state, key_bits)
-            if n > ident_lane and bool((out[2][:, ident_lane] != 0).any()):
-                raise AssertionError(f"dual_ladder B={n}: the identity "
-                                     "lane's Z is not 0")
-            if n == B:
-                X, Y, Z = out
 
         # window_ladder_tab (EncryptDeterministic; E_det(0) behind
         # encrypt_zero and Neg) on P's table at B, B - 1 and 1 lanes over
@@ -757,7 +811,7 @@ def main() -> None:
              (B, B - 1, 1)),
             (wide, dk.p_win, digits_of(
                 fixed + [krng.randrange(top) for _ in range(B - 3)]),
-             (B, B - 1, 1)),
+             (B, B - 1, Bd, 8, 1)),
             ("all zero, E_det(0)", dk.p_win, digits_of([0] * B), (B,)),
             (wide.replace("m", "r") + ", Q's table", dk.q_win, digits_of(
                 [krng.randrange(top) for _ in range(B)]), (B,)))
@@ -1042,6 +1096,52 @@ def main() -> None:
                   key_bits)
 
     kernel_checks(pk, sk, B, Bd, args.seed + 1)
+
+    # dual_ladder at the proof-of-knowledge prover's shape (phase 4j): one
+    # batch of Bd lanes of m < 340 with r < n, then Bd nonces m < n with
+    # r = 0 (Jm = Jr), at N = 2 Bd, 2 Bd - 1 and 1; the fixed first lanes
+    # of kernel_checks, the identity at lane 4
+    prng = random.Random(args.seed + 12)
+    p_ms = [0, 100, -13, -7, 0] + [prng.randrange(340)
+                                   for _ in range(Bd - 5)] \
+        + [prng.randrange(pk.n) for _ in range(Bd)]
+    p_rs = [12345, 0, 424242, 0, 0] + [prng.randrange(pk.n)
+                                       for _ in range(Bd - 5)] + [0] * Bd
+    pm_dig, pm_neg = scheme._signed_digits(p_ms, pk.n)
+    pr_dig, _ = scheme._signed_digits(p_rs, pk.n)
+    dual_ladder_checks(pk, np.concatenate([pm_dig, pr_dig]), pm_neg,
+                       pm_dig.shape[0], (2 * Bd, 2 * Bd - 1, 1), 4)
+    del pm_dig, pr_dig
+
+    # the synthesized 64-bit key of phase 4j's conformance check (a few
+    # channels per base, most of a block's slots empty): dual_ladder at
+    # N = 8 (the bucket the seven vectors encrypt in), 7 and 1 over the
+    # vectors' (m, r), and pow_loop (normalize's inversion) at N = 7 and 1
+    from bgn_torch.interop import conformance as iconf, reference as iref
+    vec64 = iconf.synthesize_vectors(64, 101)
+    pk64, _ = iref.import_reference_key(vec64, device="cuda")
+    rns64, ctx64 = pk64.dev.rns, pk64.dev.ctx
+    v_ms = [int(cv["m"]) for cv in vec64["ciphertexts"]] + [0]
+    v_rs = [int(cv["r"], 16) for cv in vec64["ciphertexts"]] + [0]
+    m64, mneg64 = scheme._signed_digits(v_ms, pk64.n)
+    r64, _ = scheme._signed_digits(v_rs, pk64.n)
+    X64, _, Z64 = dual_ladder_checks(pk64, np.concatenate([m64, r64]),
+                                     mneg64, m64.shape[0], (8, 7, 1), 7)
+    xz64 = rn.r_mul(rns64, rn.RVal(X64, 27), rn.RVal(Z64, 6)).v
+    pm2_64 = ctx64.pm2_bits.cpu().numpy()
+    e64, mm64 = ops_of(rns64.k, {"r_mul": len(pm2_64)
+                                 + int(np.count_nonzero(pm2_64))})
+    for n64 in (7, 1):
+        check("pow_loop", f"N={n64}, bits={len(pm2_64)}",
+              lambda x=xz64[:, :n64].contiguous(): cuda_rns.pow_loop(
+                  rns64, x, pm2_64),
+              lambda x=xz64[:, :n64].contiguous(): cuda_rns.pow_loop_plain(
+                  rns64, x, pm2_64),
+              (n64 * e64, n64 * mm64),
+              2 * n64 * 2 * rns64.k * f32 + len(pm2_64) * 4, pk64.key_bits)
+    log(f"kernels at the synthesized 64-bit key (k = {rns64.k}, S = "
+        f"{cuda_rns.slots_for(rns64.k)}, L = {ctx64.L}): dual_ladder and "
+        "pow_loop equal to plain")
 
     def mont_checks(seed):
         """mont_mul against its plain version: L = 34 (the 512-bit key's
@@ -1447,6 +1547,10 @@ def main() -> None:
         "each op replayed (Encrypt, Mult, AddL2, SubL2, MultConstL2, Add, "
         "Sub, Neg, MultConst, MultConst n-1, EncryptDevice)")
     for name, (seed, fn, t1) in seeded.items():
+        if name in ONE_CALL_4D:
+            log(f"{name} (re-randomized) {B / t1:.1f} ops/s first call "
+                f"(B={B}) [{card}]")
+            continue
         _, t2 = timed(lambda: fn(random.Random(seed)))
         log(f"{name} (re-randomized) {B / t1:.1f} ops/s first call, "
             f"{B / t2:.1f} ops/s second call (B={B}) [{card}]")
@@ -1573,8 +1677,10 @@ def main() -> None:
         f"doubling and {per_mult['miller_add_digits']} addition steps (n "
         f"has {pk.n.bit_length()} bits and popcount {bin(pk.n).count('1')}"
         ": bits - 1 and popcount - 2)")
-    t_dec_g = decrypt_all(sk, pk, tables, prod_g,
-                          [m * kk for m, kk in zip(ms, ks)],
+    # prod_g equals phase 4's Mult, decrypted there on every lane: the
+    # limb-mode decrypt runs on its first Bd lanes (phase 4j's time)
+    t_dec_g = decrypt_all(sk, pk, tables, prod_g[:Bd],
+                          [m * kk for m, kk in zip(ms[:Bd], ks[:Bd])],
                           "limb-mode DecryptL2 (m*k)", Bd)
     a_l, b_l = a_g[:Bd], b_g[:Bd]
     ms_l, ks_l, sg_l = ms[:Bd], ks[:Bd], signs[:Bd]
@@ -1721,6 +1827,7 @@ def main() -> None:
     # -- 4i. the poly path, serialized, and the models -------------------
     from bgn_torch import encoding, polyct as pc, serialize as ser
     from bgn_torch.models import aggregation as agg, encrypted_dot as edot
+    from bgn_torch.ops.curve import AffinePoint
     zero_counts()
     t0 = time.time()
     pkp = ser.public_key_from_json(ser.public_key_to_json(pk), device="cuda")
@@ -1776,6 +1883,14 @@ def main() -> None:
         log(f"poly {label}: every lane decodes to {value:.1f} "
             f"({', '.join(decoded)})")
         return t, t_whole
+
+    def first_polys(pct, n):
+        """The first n polys of a (degree, B) poly batch."""
+        d = pct.ct.data
+        data = d[..., :n] if pct.level2 else AffinePoint(
+            d.x[..., :n], d.y[..., :n], d.inf[..., :n])
+        return pc.PolyCiphertext(scheme.Ciphertext(data, pct.level2),
+                                 pct.degree, pct.scale_factor)
 
     def conv(u, v):
         return [sum(u[i] * v[j - i] for i in range(len(u)) if 0 <= j - i
@@ -1849,17 +1964,20 @@ def main() -> None:
             raise AssertionError(f"{name} bytes round trip != original")
     log("poly: MultPoly, AddPoly L2 and EvalPoly results through bytes "
         "(validated), equal")
+    # the ops on the 100.1 batch (every poly the same plaintext): the
+    # first POLY_CHECK polys of each result decrypted (phase 4j's time)
     for label, pct, coeffs, value in (
-            ("AddPoly (x + x)", A, [[2 * c for c in cx]] * Bp, 200.2),
-            ("SubPoly ((x + x) - x)", Sb, [cx] * Bp, 100.1),
-            ("NegPoly", Ng, [[-c for c in cx]] * Bp, -100.1),
-            ("MultConstPoly by 1.0", C1, [conv(cx, u1)] * Bp, 100.1),
-            ("MultConstPoly by -2.5", C2, [conv(cx, u25)] * Bp, -250.25),
-            ("MakePolyL2", U, [conv([1], cx)] * Bp, 100.1),
+            ("AddPoly (x + x)", A, [2 * c for c in cx], 200.2),
+            ("SubPoly ((x + x) - x)", Sb, cx, 100.1),
+            ("NegPoly", Ng, [-c for c in cx], -100.1),
+            ("MultConstPoly by 1.0", C1, conv(cx, u1), 100.1),
+            ("MultConstPoly by -2.5", C2, conv(cx, u25), -250.25),
+            ("MakePolyL2", U, conv([1], cx), 100.1),
             ("AddPoly L2 (after bytes)", back["AddPoly L2"],
-             [[a + b for a, b in zip(conv(cx, cx), aligned + [0] * M.degree)]]
-             * Bp, 100.1 * 100.1 + 100.1)):
-        poly_decrypt(label, pct, coeffs, value)
+             [a + b for a, b in zip(conv(cx, cx), aligned + [0] * M.degree)],
+             100.1 * 100.1 + 100.1)):
+        poly_decrypt(label, first_polys(pct, POLY_CHECK),
+                     [coeffs] * POLY_CHECK, value)
     poly_decrypt("MultPoly (after bytes)", back["MultPoly"],
                  [conv(cx, cx)] * Bp, 100.1 * 100.1, whole=True)
     decrypt_all(sk, pkp, tables, back["EvalPoly"].ct.reshape((-1,)),
@@ -1943,6 +2061,173 @@ def main() -> None:
     del A, Sb, Ng, C1, C2, U, AL2, back, xr_, yr_, fused, wag
     phase_done("4i (poly path, serialization, models)")
 
+    # -- 4j. the Go reference's wire format and the ZK gadgets -----------
+    import hashlib
+
+    from bgn_torch import gadgets as gd
+    from bgn_torch.interop import gob, pbc
+    from bgn_torch.ops import sha256 as sha
+    zero_counts()
+    routes0 = dict(gd.route_counts)
+    parts, part_t = [], [time.time()]      # 4j's seconds by part
+
+    def part(name):
+        now = time.time()
+        parts.append(f"{name} {now - part_t[0]:.2f} s")
+        part_t[0] = now
+
+    # (1) gob: phase 2's public key, Bd L1 lanes of phase 4's Encrypt
+    # output, Bd L2 lanes of its Mult output and GOB_POLYS polys of the
+    # 100.1 batch, each exported and imported on the card
+    kblob, t_kx = timed(lambda: iref.public_key_to_gob(pk))
+    pkg, t_ki = timed(lambda: iref.public_key_from_gob(kblob, device="cuda"))
+    # the wire format has no key_bits: the import's is n's bit length (as
+    # in the JAX package), so its bits of n lack keygen's leading zeros
+    sd, sdg = pk.dev.state_dict(), pkg.dev.state_dict()
+    nb, nbg = sd.pop("n_bits"), sdg.pop("n_bits")
+    if any(getattr(pkg, f) != getattr(pk, f) for f in (
+            "n", "l", "p", "P_host", "Q_host", "msg_space", "deterministic",
+            "poly_params", "n_digits_kind")) \
+            or pkg.key_bits != pk.n.bit_length() \
+            or gob.loads(kblob)["PairingParams"] \
+            != pbc.a1_params_to_str(pk.p, pk.n, pk.l) \
+            or sd.keys() != sdg.keys() \
+            or not all(torch.equal(sd[nm], sdg[nm]) for nm in sd) \
+            or not torch.equal(nb[len(nb) - len(nbg):], nbg) \
+            or bool(nb[:len(nb) - len(nbg)].any()):
+        raise AssertionError("the key through gob is not phase 2's")
+    log(f"gob: phase 2's public key, {len(kblob)} bytes, export "
+        f"{t_kx:.3f} s, import on the card {t_ki:.2f} s: n, l, p, P, Q, "
+        f"the params string, msg space and poly parameters equal, the "
+        f"other {len(sd)} tensors equal, key_bits {pkg.key_bits} = n's bit "
+        f"length (keygen's {pk.key_bits})")
+    part("gob key")
+    for label, ct, want in (("L1 (phase 4's Encrypt)", a[:Bd], ms[:Bd]),
+                            ("L2 (phase 4's Mult)", prod[:Bd],
+                             [m * kk for m, kk in zip(ms[:Bd], ks[:Bd])])):
+        blobs, t_x = timed(lambda ct=ct: iref.ciphertext_to_gob(pk, ct))
+        back, t_i = timed(lambda b=blobs: iref.ciphertext_from_gob(
+            pkg, b, device="cuda"))
+        if not ct_equal(back, ct):
+            raise AssertionError(f"gob {label}: the round trip != original")
+        log(f"gob {label}: {Bd} blobs of {len(blobs[0])} bytes, export "
+            f"{t_x:.2f} s, import (validated) {t_i:.2f} s, equal "
+            f"[{card}]")
+        decrypt_all(sk, pkg, tables, back, want, f"gob {label}", Bd)
+    part("gob L1 and L2 with their decrypts")
+    for i in range(GOB_POLYS):
+        col = pc.PolyCiphertext(scheme.Ciphertext(AffinePoint(
+            X.ct.data.x[:, :, i], X.ct.data.y[:, :, i],
+            X.ct.data.inf[:, i]), False), X.degree, X.scale_factor)
+        back = iref.poly_ciphertext_from_gob(
+            pkg, iref.poly_ciphertext_to_gob(pk, col), device="cuda")
+        dec = pc.decrypt_poly(sk, back, pkg, tables)
+        if not ct_equal(back.ct, col.ct) or (back.degree, back.scale_factor) \
+                != (X.degree, X.scale_factor) \
+                or dec.coefficients != cx or f"{dec.poly_eval():.1f}" \
+                != "100.1":
+            raise AssertionError(f"gob poly {i} of the 100.1 batch")
+    log(f"gob: polys 0-{GOB_POLYS - 1} of the 100.1 batch (degree "
+        f"{X.degree}) through poly_ciphertext_to_gob / _from_gob, equal, "
+        "decrypted to 100.1")
+    part("gob polys")
+    # (2) conformance: the synthesized vectors, the device check on the card
+    counts, t_conf = timed(lambda: iconf.verify_reference_vectors(
+        vec64, device="cuda"))
+    if counts != {"key": 1, "pairing": 1, "encrypt": 7, "ops": 7,
+                  "device_encrypt": 7}:
+        raise AssertionError(f"conformance counts {counts}")
+    log(f"conformance: the synthesized 64-bit vectors {counts}, the device "
+        f"encryptions byte-equal on the card ({t_conf:.2f} s)")
+    part("conformance")
+    # (3) the gadgets on phase 2's key at Bd lanes of phase 4's (m, r)
+    gv, gr, gct = ms[:Bd], rs[:Bd], a[:Bd]
+    ok, t_dpc = timed(lambda: gd.check_decryption_proof(
+        pk, gct, gd.new_decryption_proof(gv, gr)))
+    bad = gd.check_decryption_proof(pk, gct, gd.new_decryption_proof(
+        gv, [gr[0] + 1] + gr[1:]))
+    if not ok.all() or bad.tolist() != [False] + [True] * (Bd - 1):
+        raise AssertionError("decryption proofs: honest or tampered wrong")
+    part("decryption proofs")
+    grng = random.Random(args.seed + 11)
+    proof, t_prove = timed(lambda: gd.new_proof_of_plaintext_knowledge(
+        pk, sk, gv, gr, rng=grng))
+    # one verify of the batch with three lanes tampered: lane 0's DL, lane
+    # 1's nonce (lane 2's), lane 3 against lane 4's ciphertext
+    dl = list(proof.dl)
+    dl[0] = (dl[0] + 1) % pk.n
+    nz = AffinePoint(*(t.clone() for t in proof.nonce.data))
+    nz.x[:, 1], nz.y[:, 1] = nz.x[:, 2], nz.y[:, 2]
+    sw = AffinePoint(*(t.clone() for t in gct.data))
+    sw.x[:, 3], sw.y[:, 3], sw.inf[3] = sw.x[:, 4], sw.y[:, 4], sw.inf[4]
+    got, t_ver = timed(lambda: gd.check_proof_of_plaintext_knowledge(
+        pk, scheme.Ciphertext(sw, False), gd.ProofOfPlaintextKnowledge(
+            proof.ct, scheme.Ciphertext(nz, False), dl)))
+    if got.tolist() != [False, False, True, False] + [True] * (Bd - 4) \
+            or gd.route_counts["fused"] != routes0["fused"] + 1 \
+            or gd.route_counts["limb"] != routes0["limb"]:
+        raise AssertionError(f"PoK verify: {int(got.sum())} of {Bd} lanes "
+                             "true, not every honest lane and no tampered "
+                             f"one (DL, nonce, ciphertext); routes "
+                             f"{gd.route_counts}")
+    log(f"gadgets: {Bd} decryption proofs true, a tampered randomness "
+        f"false; {Bd} proofs of plaintext knowledge verified once on the "
+        f"fused RNS route (limb fallback 0 times): every honest lane true, "
+        f"a tampered DL, nonce and ciphertext false [{card}]")
+    part("PoK prove and verify")
+    # the device digests against hashlib over serialize.point_bytes
+    words, t_fs = timed(lambda: gd._fs_digest(dk, proof.ct.data,
+                                              proof.nonce.data))
+    hp = convert.affine_to_host(ctx, proof.ct.data)
+    hn = convert.affine_to_host(ctx, proof.nonce.data)
+    want = [hashlib.sha256(ser.point_bytes(pk, u) + ser.point_bytes(pk, v))
+            .digest() for u, v in zip(hp, hn)]
+    wnp = words.cpu().numpy()
+    if [row.astype(">u4").tobytes() for row in wnp] != want:
+        raise AssertionError("device Fiat-Shamir digests != hashlib")
+    msg = torch.randint(0, 1 << 32, (Bd, 2 * L), device=dev)
+    pad, _ = sha.pad_words(8 * L)
+    msg = torch.cat([msg, torch.as_tensor(pad, device=dev).expand(Bd, -1)],
+                    dim=1)
+    sha.sha256_words(msg)
+    _, t_sha = timed(lambda: sha.sha256_words(msg))
+    log(f"gadgets: all {Bd} device digests equal hashlib's on "
+        f"serialize.point_bytes; _fs_digest {t_fs * 1e3:.1f} ms, "
+        f"sha256_words of {Bd} messages of {8 * L} bytes "
+        f"{t_sha * 1e3:.1f} ms [{card}]")
+    part("digests against hashlib, sha256_words")
+    # a small batch with an identity nonce in lane 5, which the RNS
+    # route's incomplete addition cannot take: the batch goes to the limb
+    # verify at once
+    nfb = 8
+    nn = AffinePoint(*(t[..., :nfb].clone() for t in proof.nonce.data))
+    nn.x[:, 5], nn.y[:, 5], nn.inf[5] = 0, 0, 1
+    small = gd.ProofOfPlaintextKnowledge(proof.ct[:nfb],
+                                         scheme.Ciphertext(nn, False),
+                                         proof.dl[:nfb])
+    r0 = dict(gd.route_counts)
+    got, t_fb = timed(lambda: gd.check_proof_of_plaintext_knowledge(
+        pk, gct[:nfb], small))
+    if gd.route_counts != dict(r0, limb=r0["limb"] + 1) \
+            or got.tolist() != [True] * 5 + [False] + [True] * (nfb - 6):
+        raise AssertionError(f"PoK: the identity nonce did not send the "
+                             f"batch to the limb verify or its answers "
+                             f"{got.tolist()} are wrong ({gd.route_counts})")
+    log(f"gadgets: an identity nonce in lane 5 of {nfb} sent the batch to "
+        f"the limb verify ({t_fb:.2f} s), whose answers {got.tolist()} are "
+        f"the truth; routes {gd.route_counts} [{card}]")
+    part("identity-nonce batch")
+    log("4j by part: " + ", ".join(parts) + f" [{card}]")
+    for op, t, unit in (("decryption-proof check", t_dpc, "proofs"),
+                        ("PoK prove", t_prove, "proofs"),
+                        ("PoK verify", t_ver, "proofs"),
+                        ("Fiat-Shamir digest (_fs_digest)", t_fs, "digests"),
+                        ("sha256_words", t_sha, "digests")):
+        log(f"{op} {Bd / t:.1f} {unit}/s (B={Bd}, 512-bit key) [{card}]")
+    launches_gadgets = read_counts("gadgets", GADGET_PATH)
+    del proof, words, msg, nz, sw, nn, small, pkg
+    phase_done("4j (gob, conformance, gadgets)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
@@ -2025,8 +2310,9 @@ def main() -> None:
             paths = ("limb-domain",)
         else:
             launches = (launches_main[name] + launches_l1[name]
-                        + launches_limb[name] + launches_poly[name])
-            paths = ("main", "L1", "limb", "poly")
+                        + launches_limb[name] + launches_poly[name]
+                        + launches_gadgets[name])
+            paths = ("main", "L1", "limb", "poly", "gadgets")
         splits = {}
         for path in paths:
             for split, counts_by in splits_of[path][name].items():
@@ -2046,7 +2332,8 @@ def main() -> None:
                                  "step": launches_step[name],
                                  "limb_domain": launches_digit[name],
                                  "no_rns": launches_norns[name],
-                                 "poly": launches_poly[name]},
+                                 "poly": launches_poly[name],
+                                 "gadgets": launches_gadgets[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -16,6 +16,7 @@ digits), inputs from a numpy seed.
 
 Every comparison is exact: each value is a canonical residue.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -18,6 +18,7 @@ the threads per block) is read from the sources too.  Every carry bound
 that a comment of mont_words.cuh claims is asserted where the kernel
 relies on it.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 import re
 from pathlib import Path

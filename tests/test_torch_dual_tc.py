@@ -17,6 +17,7 @@ only live window is the first, then random digits, or all digits zero
 (E_det(0), every Z 0).  The moduli are test_torch_tc_ext.py's: k = 47
 (S = 4), 92 (S = 6) and 186 (S = 12).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import numpy as np

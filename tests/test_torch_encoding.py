@@ -6,6 +6,7 @@ encoders and `poly_eval`, over seeded values and the reference's own
 Also the port's keygen and key carried from JAX fill the same tables.
 No kernel and no JAX computation: a few seconds.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 from types import SimpleNamespace
 

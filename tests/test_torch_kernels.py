@@ -10,6 +10,7 @@ package's fp32 alpha sum may read a value as value + p (its audit allows
 it), the port's is exact.  Limbs after the exit conversion must be
 identical.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import jax.numpy as jnp

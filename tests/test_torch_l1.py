@@ -8,6 +8,7 @@ kernels in interpret mode.  Residues are compared by their value mod p
 package's fp32 alpha sum may read a value as value + p.  Limbs after the
 exit conversion, identity lanes and decrypted values must be identical.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import jax.numpy as jnp

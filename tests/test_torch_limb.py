@@ -7,6 +7,7 @@ mode; everything above it against the JAX functions on the same limbs and
 against host ints.  Everything runs on the CPU (the mont_mul wrapper runs
 its plain version for CPU tensors).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ where the port departs from bgn_tpu/models/aggregation.py:79 (a
 non-deterministic key called without an rng: the JAX package returns
 the fused value un-re-randomized, the port re-randomizes it).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import copy
 import random
 

@@ -14,6 +14,7 @@ the source, so the emulation follows it.  The word product
 are mont_words.cuh's, which the digit-domain Miller steps share;
 tests/test_torch_digits_words.py runs them there.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 import re
 from pathlib import Path

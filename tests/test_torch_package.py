@@ -5,6 +5,7 @@ version; and the kernels' integer base extension (csrc/rns.cuh r_mul,
 emulated here in numpy over the same constant blob) equals the plain
 r_mul bit for bit.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import ast
 import math
 import random

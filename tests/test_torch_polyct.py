@@ -11,6 +11,7 @@ would add ~23 s of JAX compiles, so the L1 accumulator is held to the
 port's MultConst and Add composed by hand).  Also both accumulators
 at d1 != d2 and eval_poly at degree 0, 1 and an odd degree.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import jax.numpy as jnp
@@ -19,10 +20,13 @@ import pytest
 import torch
 
 from _torch_carry import port_public_key, port_tables
+from bgn_torch import config as tconfig
 from bgn_torch import encoding as tenc
 from bgn_torch import polyct as tpoly
 from bgn_torch import scheme as tscheme
 from bgn_torch.ops import fp2 as tfp2
+from bgn_torch.ops import pairing as tpairing
+from bgn_torch.ops import rns_pairing as trp
 from bgn_tpu import polyct as jpoly
 from bgn_tpu import scheme as jscheme
 from bgn_tpu.ops import curve as jcurve
@@ -296,3 +300,24 @@ def test_skew_index_and_strings(keys, polys):
     prod = tpoly.mult_poly(pk, a, a)
     assert prod.string(pk) == \
         jpoly.PolyCiphertext(_jax_ct(prod.ct), 6, 0).string(jpk)
+
+
+@pytest.mark.parametrize("mode", [dict(rns_pallas="1"), dict(rns_miller="0")],
+                         ids=["step", "limb"])
+def test_mult_poly_and_mult_const_poly_in_other_modes(keys, polys, mode,
+                                                      monkeypatch):
+    """One MultPoly (d1 = 3, d2 = 2) and one L1 MultConstPoly (by 5.0) in
+    step mode (the step kernels' plain versions) and in limb mode (the
+    limb pairing and the limb ladders), limbs equal to the default mode's;
+    monkeypatch restores the modes."""
+    _, pk, _, _ = keys
+    _, a, _, b = polys
+    want = (tpoly.mult_poly(pk, a, b), tpoly.mult_const_poly(pk, b, 5.0))
+    monkeypatch.setattr(trp, "_PALLAS_MODE", trp._PALLAS_MODE)
+    monkeypatch.setattr(tpairing, "_RNS_MODE", tpairing._RNS_MODE)
+    tconfig.BGNParams(**mode).apply_kernel_modes()
+    got = (tpoly.mult_poly(pk, a, b), tpoly.mult_const_poly(pk, b, 5.0))
+    for g, w in zip(got, want):
+        assert (g.degree, g.scale_factor, g.level2) == \
+            (w.degree, w.scale_factor, w.level2)
+        assert _equal(g.ct, w.ct)

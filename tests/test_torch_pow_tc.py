@@ -10,6 +10,7 @@ lane of eight; n = 13: a short last block), equal to the plain chains.
 The moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and
 186 (S = 12).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import numpy as np
@@ -34,9 +35,7 @@ def _tc_sums(ctx, mat, q):
     """The tensor-core block product (test_torch_tc_ext.py's emulation of
     rns_tc.cuh bgn_tc_extend) over q [k, N], N a multiple of G."""
     assert q.shape[1] % G == 0
-    return np.concatenate([tce._block_extension(ctx, mat, q[:, b:b + G], G).T
-                           for b in range(0, q.shape[1], G)],
-                          axis=1).astype(np.int64)
+    return tce._block_extension(ctx, mat, q, G).T.astype(np.int64)
 
 
 def _routed_ext_dot(ctx, sums_of):

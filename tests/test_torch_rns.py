@@ -8,6 +8,7 @@ read as value + p), the port sums it exactly.  Limbs are compared with
 array_equal.  Sizes: p of 80 and 515 bits (narrow path, k <= 64) and 800
 bits (wide path, k > 64).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import jax.numpy as jnp

@@ -6,6 +6,7 @@ port alone against hostmath (the k = 45 channel layout the H100 kernels
 see).  Everything runs on the CPU (device="cpu": the kernel wrappers run
 their plain PyTorch versions).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import random
 
 import numpy as np

@@ -10,6 +10,7 @@ that each JAX kernel compiles once (MakeL2 is held to the host pairing
 only: test_torch_scheme.py holds the same pairing against the JAX
 package's Mult).  Everything runs on the CPU.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

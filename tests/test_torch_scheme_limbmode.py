@@ -20,6 +20,7 @@ its own re-randomization draws from the same rng).  Every Encrypt uses
 full-width r, so that all of them share one JAX compile.  Everything
 runs on the CPU.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import copy
 import random
 

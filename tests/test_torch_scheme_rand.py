@@ -14,6 +14,7 @@ the same r (one compile per level), and Add at both levels against the
 JAX package's whole op.  Every result is also decrypted.  Everything runs
 on the CPU.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import copy
 import random
 

@@ -8,6 +8,7 @@ compiled); public_key_from_parts rebuilds the keygen key tensor for
 tensor; and the load-time validation errors.  Both packages store an
 identity lane of a level-1 batch as inf = 1 with x = y = 0.  On the CPU.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import io
 import json
 import random

@@ -19,6 +19,7 @@ desynchronises them), and their C entries against the ctypes argument
 types.  The moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92
 (S = 6) and 186 (S = 12).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import ctypes
 import re
 

@@ -17,6 +17,7 @@ loop configuration, on the shared 64-bit key, exactly.
 4. BGNParams: the JAX package's fields, defaults, validation and
    to_dict(); the refused kernel modes; the applied ones.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import dataclasses
 import random
 

@@ -11,6 +11,7 @@ The moduli are odd numbers p = 3 mod 4 with no factor below 2000 that
 pass Fermat tests to six bases, found from a seed; their widths give
 k = 47 (the 512-bit key's slot count S = 4), 92 (S = 6) and 186 (S = 12).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import math
 import random
 
@@ -90,58 +91,61 @@ def test_tc_planes_map_back_to_the_blob_matrices(ctx):
 
 def _mma(a_frags, b_frags):
     """mma.sync.m16n8k32.row.col.s32.u8.u8.s32 over one warp's fragments:
-    a_frags [32, 16] bytes, b_frags [32, 8] bytes -> d [32, 4] int64, by
-    the PTX fragment layouts (g = lane // 4, q = lane % 4)."""
+    a_frags [..., 32, 16] bytes, b_frags [..., 32, 8] bytes -> d
+    [..., 32, 4] int64, by the PTX fragment layouts (g = lane // 4,
+    q = lane % 4); leading axes broadcast, one warp's product each."""
     lane = np.arange(32)[:, None]
     g, q = lane // 4, lane % 4
     i = np.arange(16)[None, :]
-    A = np.zeros((16, 32), dtype=np.int64)
-    A[g + 8 * ((i // 4) % 2), 4 * q + i % 4 + 16 * (i // 8)] = a_frags
+    A = np.zeros(a_frags.shape[:-2] + (16, 32), dtype=np.int64)
+    A[..., g + 8 * ((i // 4) % 2), 4 * q + i % 4 + 16 * (i // 8)] = a_frags
     j = np.arange(8)[None, :]
-    B = np.zeros((32, 8), dtype=np.int64)
-    B[4 * q + j % 4 + 16 * (j // 4), g] = b_frags
+    B = np.zeros(b_frags.shape[:-2] + (32, 8), dtype=np.int64)
+    B[..., 4 * q + j % 4 + 16 * (j // 4), g] = b_frags
     D = A @ B
     r = np.arange(4)[None, :]
-    d = D[g + 8 * (r // 2), 2 * q + r % 2]
+    d = D[..., g + 8 * (r // 2), 2 * q + r % 2]
     assert d.max() < 2 ** 31                       # the s32 sums are exact
     return d
 
 
 def _block_extension(ctx, mat, cols, G=8):
-    """The kernel's extension for one block (rns_tc.cuh bgn_tc_extend):
-    residues cols [k, G] (one column per lane) as lo/hi planes of the
-    q tile, the warps' output tiles, four plane products per 32-channel
-    step, HH * 2^16 + (HL + LH) * 2^8 + LL in unsigned 32 bits.  Returns
-    the sum tile [G, k]."""
+    """The kernel's extension for blocks of G lanes (rns_tc.cuh
+    bgn_tc_extend): residues cols [k, N] (one column per lane, N a
+    multiple of G, block b the lanes b*G .. b*G + G - 1) as lo/hi planes
+    of each block's q tile, the warps' output tiles, four plane products
+    per 32-channel step, HH * 2^16 + (HL + LH) * 2^8 + LL in unsigned 32
+    bits.  Every block, output tile and step is one warp's _mma, run as
+    one batch.  Returns the sum tiles [N, k]."""
     k = ctx.k
     mt, kt = _tiles(k)
+    N = cols.shape[1]
+    assert N % G == 0 and G % 8 == 0
     planes = cuda_rns.tc_planes(ctx).numpy().reshape(2, mt, kt, 2, 32, 16)
-    qt = np.zeros((2, G, 32 * kt), dtype=np.int64)
+    alo = planes[mat, :, :, 0].astype(np.int64)            # [mt, kt, 32, 16]
+    ahi = planes[mat, :, :, 1].astype(np.int64)
+    qt = np.zeros((2, N, 32 * kt), dtype=np.int64)
     qt[0, :, :k] = (cols & 255).T
     qt[1, :, :k] = (cols >> 8).T
-    sums = np.zeros((G, 16 * mt), dtype=np.uint32)
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
-    for tile in range(mt * G // 8):
-        t, nt = tile % mt, tile // mt
-        acc = {"hh": 0, "mid": 0, "ll": 0}
-        for s in range(kt):
-            alo = planes[mat, t, s, 0].astype(np.int64)
-            ahi = planes[mat, t, s, 1].astype(np.int64)
-            kb = 32 * s + 4 * q
-            idx = np.concatenate([kb[:, None] + np.arange(4),
-                                  kb[:, None] + 16 + np.arange(4)], axis=1)
-            blo = np.take_along_axis(qt[0, nt * 8 + g], idx, axis=1)
-            bhi = np.take_along_axis(qt[1, nt * 8 + g], idx, axis=1)
-            acc["hh"] = acc["hh"] + _mma(ahi, bhi)
-            acc["mid"] = acc["mid"] + _mma(ahi, blo) + _mma(alo, bhi)
-            acc["ll"] = acc["ll"] + _mma(alo, blo)
-        u32 = {n: np.asarray(v, dtype=np.int64).astype(np.uint32)
-               for n, v in acc.items()}
-        v = (u32["hh"] << np.uint32(16)) + (u32["mid"] << np.uint32(8)) \
-            + u32["ll"]
-        for r in range(4):
-            sums[nt * 8 + 2 * q + r % 2, 16 * t + g + 8 * (r // 2)] = v[:, r]
+    kb = 32 * np.arange(kt)[:, None] + 4 * q                # [kt, 32]
+    idx = np.concatenate([kb[..., None] + np.arange(4),
+                          kb[..., None] + 16 + np.arange(4)], axis=-1)
+    base = np.arange(0, N, 8).reshape(N // G, G // 8)       # [blocks, nt]
+    rows = (base[:, :, None] + g)[:, :, None, :, None]      # lane's row
+    b = [qt[pl][rows, idx] for pl in (0, 1)]                # [.., kt, 32, 8]
+    blo, bhi = (x[:, :, None] for x in b)                   # + tile axis t
+    acc = {"hh": _mma(ahi, bhi), "mid": _mma(ahi, blo) + _mma(alo, bhi),
+           "ll": _mma(alo, blo)}                            # [.., t, s, 32, 4]
+    u32 = {n: v.sum(axis=3).astype(np.uint32) for n, v in acc.items()}
+    v = (u32["hh"] << np.uint32(16)) + (u32["mid"] << np.uint32(8)) \
+        + u32["ll"]                                         # [.., t, 32, 4]
+    r = np.arange(4)
+    out_row = base[:, :, None, None, None] + (2 * q[:, None] + r % 2)
+    out_col = 16 * np.arange(mt)[:, None, None] + (g[:, None] + 8 * (r // 2))
+    sums = np.zeros((N, 16 * mt), dtype=np.uint32)
+    sums[out_row, out_col] = v
     return sums[:, :k]
 
 
@@ -172,9 +176,7 @@ def test_block_product_equals_plain_extension_sums(ctx, kind):
         want = _plain_sums(ctx, W, torch.tensor(src, dtype=torch.float32))
         cols = np.zeros((k, 2 * G), dtype=np.int64)
         cols[:, :n] = src
-        got = np.concatenate(
-            [_block_extension(ctx, mat, cols[:, b:b + G], G).T
-             for b in (0, G)], axis=1).astype(np.int64)
+        got = _block_extension(ctx, mat, cols, G).T.astype(np.int64)
         np.testing.assert_array_equal(got[:, :n], want)
         assert not got[:, n:].any()
 
@@ -233,7 +235,5 @@ def test_block_product_on_the_ladder_inputs(ctx, monkeypatch):
         assert q.min() >= 0 and q.max() < 4096
         want = _plain_sums(ctx, ctx.w1 if mat == 0 else ctx.w2,
                            torch.tensor(q, dtype=torch.float32))
-        got = np.concatenate(
-            [_block_extension(ctx, mat, q[:, b:b + G], G).T
-             for b in range(0, q.shape[1], G)], axis=1).astype(np.int64)
+        got = _block_extension(ctx, mat, q, G).T.astype(np.int64)
         np.testing.assert_array_equal(got, want)

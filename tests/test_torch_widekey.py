@@ -8,6 +8,7 @@ to raise, so keygen's own branch runs) against the same seed's key in
 limb mode, op by op with torch.equal, with every RNS kernel wrapper
 refused; and a JAX-package key carried across without its RNS context.
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import math
 import random
 

@@ -16,6 +16,7 @@ every lane of one block while the other block's lanes are live there.  The
 moduli are test_torch_tc_ext.py's: k = 47 (S = 4), 92 (S = 6) and 186
 (S = 12).
 """
+import _torch_threads  # noqa: F401  (first: one torch thread per process)
 import numpy as np
 import pytest
 import torch
