@@ -59,7 +59,7 @@ class BGNParams:
     fp_precision: float = 0.0001
     deterministic: bool = True
 
-    # -- mesh / sharding (the port runs one device so far) --------------
+    # -- mesh / sharding (ranks of the default process group) ----------
     n_devices: Optional[int] = None
     mesh_axis: str = "data"
 
@@ -87,11 +87,22 @@ class BGNParams:
                              self.deterministic, rng=rng, device=device)
 
     def make_mesh(self):
-        """The JAX package's 1-D device mesh; the port has no multi-device
-        path yet."""
-        raise NotImplementedError(
-            "multi-device runs are not ported yet: ROADMAP.md queue 1, "
-            "item 6 (parallel)")
+        """1-D DeviceMesh over the first n_devices ranks of the default
+        process group (parallel.make_mesh), or None when fewer than 2 are
+        in scope: n_devices if set, else the group's world size (1 without
+        a group).  Raises when n_devices asks for more ranks than the group
+        has; it never takes fewer."""
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        n = world if self.n_devices is None else int(self.n_devices)
+        if n < 2:
+            return None
+        if n > world:
+            raise ValueError(f"n_devices={n}, but the default process group "
+                             f"has {world} rank(s): start one of {n} with "
+                             "parallel.multihost.initialize")
+        from .parallel import make_mesh
+        return make_mesh(n, self.mesh_axis)
 
     def apply_kernel_modes(self) -> None:
         """Check every kernel-mode field, then set the port's kernel

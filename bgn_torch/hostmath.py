@@ -8,8 +8,11 @@ for the reference implementation (reference: bgn.go:93 `pbc.GenerateA1`,
 bgn.go:101 `pbc.NewPairing`), and doubles as the *golden model* the CUDA
 kernels are tested against.
 
-The port's own copy of `bgn_tpu/hostmath.py`, pure-Python path only (no
-native accelerator): `bgn_torch` imports nothing of `bgn_tpu`.  Every
+The port's own copy of `bgn_tpu/hostmath.py`: `bgn_torch` imports nothing
+of `bgn_tpu`.  As there, the primality test and the cofactor search call
+the native library (utils/native.py, which the port builds from
+csrc/hostmath_accel.cpp); their Python loops stay beside them as the
+plain versions (`is_probable_prime_plain`, `find_cofactor_plain`).  Every
 outcome is deterministic under a seeded rng, so a key drawn here from
 `random.Random(s)` equals the JAX package's key from the same seed.
 
@@ -53,11 +56,23 @@ _SMALL_PRIMES = [2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53,
 
 
 def is_probable_prime(n: int, rounds: int = 40, rng=None) -> bool:
-    """Miller-Rabin primality test (mirrors crypto/rand.Prime's guarantees).
+    """Miller-Rabin primality test (mirrors crypto/rand.Prime's guarantees)
+    in the native library; the plain loop for an n wider than it takes.
 
     The witnesses are random, but the outcome is deterministic for every
     n keygen meets, so keygen reproducibility under a seeded rng is
     unaffected."""
+    if n < 2:
+        return False
+    from .utils import native
+    nat = native.is_probable_prime(n, rounds)
+    if nat is not None:
+        return nat
+    return is_probable_prime_plain(n, rounds, rng)
+
+
+def is_probable_prime_plain(n: int, rounds: int = 40, rng=None) -> bool:
+    """is_probable_prime's Python loop."""
     if n < 2:
         return False
     for sp in _SMALL_PRIMES:
@@ -125,11 +140,23 @@ class A1Params:
 
 
 def find_cofactor(n: int, start_l: int = 4) -> int:
-    """Smallest l = 4k with p = l*n - 1 prime (PBC a1 param search)."""
+    """Smallest l = 4k with p = l*n - 1 prime (PBC a1 param search), in the
+    native library, which screens candidates with an incremental
+    small-prime sieve before any big-number work; the plain loop for an n
+    outside the library's sizes."""
+    from .utils import native
+    nat = native.find_cofactor(n, start_l)
+    if nat is not None:
+        return nat
+    return find_cofactor_plain(n, start_l)
+
+
+def find_cofactor_plain(n: int, start_l: int = 4) -> int:
+    """find_cofactor's Python loop."""
     l = start_l
     while True:
         p = l * n - 1
-        if is_probable_prime(p):
+        if is_probable_prime_plain(p):
             return l
         l += 4
 

@@ -215,76 +215,90 @@ def _signed_result(hits, vals, bound: int, is_zero_ct):
     return is_zero_ct | found_p | found_n, m_signed
 
 
-def bsgs_g1(ctx: MontCtx, tables: DecryptTables, csk: JacPoint):
-    """Limb giant-step scan + lookup for a batch of G1 points csk = C^q1
-    (Jacobian [L, *batch]): the chain csk * gamma^-i of complete mixed
-    additions for i = 0..bound, in both signs, then ONE limb normalize of
-    all candidates.  Returns (found {0,1}, m signed) of batch shape."""
-    bound = tables.bound
-    batch = tuple(csk.Z.shape[1:])
+def g1_lanes(ctx: MontCtx, csk: JacPoint) -> JacPoint:
+    """csk and its inverse on a new batch axis: Jacobian [L, 2, *batch]."""
+    neg_csk = JacPoint(csk.X, mg.mod_neg(ctx, csk.Y), csk.Z)
+    return JacPoint(*(torch.stack([u, w], dim=1) for u, w in zip(csk, neg_csk)))
+
+
+def g1_scan(ctx: MontCtx, tables: DecryptTables, v: JacPoint, length: int):
+    """The limb giant-step chain v, v*gamma^-1, ... (`length` candidates,
+    complete mixed additions) from the stacked lanes v [L, 2, *batch], ONE
+    limb normalize of all candidates, and the digest lookup.  Returns
+    (hits, vals) [length, 2, *batch]."""
+    batch = tuple(v.Z.shape[2:])
     L = ctx.L
     g = tables.point("gamma_inv_g1")
     shape = (L,) + batch
     base = AffinePoint(lb.expand_to(g.x, shape), lb.expand_to(g.y, shape),
                        g.inf.reshape((1,) * len(batch)).expand(batch))
     base2 = dbl(ctx, to_jac(ctx, base))
-    neg_csk = JacPoint(csk.X, mg.mod_neg(ctx, csk.Y), csk.Z)
-    # the two signs on a new batch axis: [L, 2, *batch]
-    v = JacPoint(*(torch.stack([u, w], dim=1) for u, w in zip(csk, neg_csk)))
     base_b = AffinePoint(base.x[:, None], base.y[:, None], base.inf[None])
     base2_b = JacPoint(base2.X[:, None], base2.Y[:, None], base2.Z[:, None])
     auxs = [v]
-    for _ in range(bound):
+    for _ in range(length - 1):
         v = madd(ctx, v, base_b, base2_b)
         auxs.append(v)
-    # candidates [L, bound+1, 2, *batch], normalized in one batch inversion
+    # candidates [L, length, 2, *batch], normalized in one batch inversion
     aff = normalize(ctx, JacPoint(*(torch.stack(c, dim=1)
                                     for c in zip(*auxs))))
     words = torch.cat([aff.x, aff.y], dim=0)
     hits, vals = _lookup(tables.table_g1, words)
-    hits = hits * (1 - aff.inf)     # the identity matches no table entry
-    return _signed_result(hits, vals, bound, lb.is_zero(csk.Z))
+    return hits * (1 - aff.inf), vals   # the identity matches no entry
+
+
+def bsgs_g1(ctx: MontCtx, tables: DecryptTables, csk: JacPoint):
+    """Limb giant-step scan + lookup for a batch of G1 points csk = C^q1
+    (Jacobian [L, *batch]): the chain csk * gamma^-i of complete mixed
+    additions for i = 0..bound, in both signs, then ONE limb normalize of
+    all candidates.  Returns (found {0,1}, m signed) of batch shape."""
+    hits, vals = g1_scan(ctx, tables, g1_lanes(ctx, csk), tables.bound + 1)
+    return _signed_result(hits, vals, tables.bound, lb.is_zero(csk.Z))
+
+
+def gt_scan(ctx: MontCtx, tables: DecryptTables, z, length: int):
+    """The limb giant-step chain of F_p^2 products from the stacked lanes
+    z [2, L, 2, *batch] (`length` candidates) and the digest lookup.
+    Returns (hits, vals) [length, 2, *batch]."""
+    batch = tuple(z.shape[3:])
+    gamma = tables.gamma_inv_gt.reshape((2, ctx.L, 1) + (1,) * len(batch))
+    auxs = [z]
+    for _ in range(length - 1):
+        z = fp2.mul(ctx, z, gamma)
+        auxs.append(z)
+    auxs = torch.stack(auxs, dim=2)                     # [2, L, C, 2, *b]
+    words = auxs.reshape((2 * ctx.L,) + tuple(auxs.shape[2:]))
+    return _lookup(tables.table_gt, words)
 
 
 def bsgs_gt(ctx: MontCtx, tables: DecryptTables, csk):
     """bsgs_g1 for GT: csk [2, L, *batch] = c^q1 in F_p^2; the giant steps
     are F_p^2 products and the inverse is the conjugate (unitary)."""
-    bound = tables.bound
-    batch = tuple(csk.shape[2:])
-    gamma = tables.gamma_inv_gt.reshape((2, ctx.L, 1) + (1,) * len(batch))
     z = torch.stack([csk, fp2.conj(ctx, csk)], dim=2)   # [2, L, 2, *batch]
-    auxs = [z]
-    for _ in range(bound):
-        z = fp2.mul(ctx, z, gamma)
-        auxs.append(z)
-    auxs = torch.stack(auxs, dim=2)                     # [2, L, C, 2, *b]
-    words = auxs.reshape((2 * ctx.L,) + tuple(auxs.shape[2:]))
-    hits, vals = _lookup(tables.table_gt, words)
-    return _signed_result(hits, vals, bound, fp2.is_one(ctx, csk))
+    hits, vals = gt_scan(ctx, tables, z, tables.bound + 1)
+    return _signed_result(hits, vals, tables.bound, fp2.is_one(ctx, csk))
 
 
-def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
-                base_inf):
-    """G1 giant-step scan + lookup for csk in RNS form (RVals [2k, B], the
-    raw output of rns_pairing.scalar_mul_rns).  base_inf: [B] identity
-    mask of the input ciphertexts (their raw residues are garbage).
-
-    The chain uses the incomplete mixed addition: candidate i hits
-    V == -addend only when m == (i+1)*bound (the true sum is the
-    identity and comes out as Z == 0), and V == +addend only after the
-    true hit at step i-2; a Z == 0 candidate keeps Z == 0 and is masked
-    from the lookup.  Returns (found {0,1}, m signed) int64 [B]."""
-    bound = tables.bound
-    k2 = 2 * rns.k
-    B = Xr.v.shape[-1]
-    L = ctx.L
-    C = bound + 1
-
+def g1_rns_lanes(rns, Xr, Yr, Zr):
+    """csk (RVals [2k, B]) and its inverse (X, K*p - Y, Z) side by side:
+    raw residues [2k, 2B]."""
     negY = rns.kp[:, Yr.bound:Yr.bound + 1] - Yr.v
     negY = torch.where(negY < 0, negY + rns.m, negY)
-    X = torch.cat([Xr.v, Xr.v], dim=-1)                  # [2k, 2B]
-    Y = torch.cat([Yr.v, negY], dim=-1)
-    Z = torch.cat([Zr.v, Zr.v], dim=-1)
+    return (torch.cat([Xr.v, Xr.v], dim=-1), torch.cat([Yr.v, negY], dim=-1),
+            torch.cat([Zr.v, Zr.v], dim=-1))
+
+
+def g1_rns_scan(ctx: MontCtx, rns, tables: DecryptTables, X, Y, Z, inf2,
+                length: int):
+    """The RNS giant-step chain from the stacked lanes X, Y, Z [2k, 2B]
+    (`length` candidates, the incomplete mixed addition: see bsgs_g1_rns),
+    one batch inversion, the candidates' canonical limbs and the digest
+    lookup.  inf2: [2B] identity mask of the lanes.  Returns (hits, vals,
+    mask) [length, 2, B]; mask flags the identity candidates."""
+    k2 = 2 * rns.k
+    B = X.shape[-1] // 2
+    L = ctx.L
+    C = length
     g = tables.point("gamma_inv_g1")
     gx = rn.to_rns_mont(rns, g.x.reshape(L, 1)).v.expand(k2, 2 * B)
     gy = rn.to_rns_mont(rns, g.y.reshape(L, 1)).v.expand(k2, 2 * B)
@@ -301,7 +315,6 @@ def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
 
     # identity mask from canonical limb Z (no exact zero test in RNS)
     Zl = rn.from_rns_mont(rns, rn.RVal(wide(Zs), 6))
-    inf2 = torch.cat([base_inf, base_inf], dim=-1).to(torch.int64)
     zmask = lb.is_zero(Zl).reshape(C, 2 * B) | inf2[None]
     one_b = rns.one_rns.expand(k2, 2 * B)
     zsub = torch.where(zmask[:, None].to(torch.bool), one_b[None],
@@ -321,38 +334,59 @@ def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
 
     words = torch.cat([xl, yl], dim=0)                   # [2L, C, 2, B]
     hits, vals = _lookup(tables.table_g1, words)
-    hits = hits * (1 - mask4)
+    return hits * (1 - mask4), vals, mask4
+
+
+def bsgs_g1_rns(ctx: MontCtx, rns, tables: DecryptTables, Xr, Yr, Zr,
+                base_inf):
+    """G1 giant-step scan + lookup for csk in RNS form (RVals [2k, B], the
+    raw output of rns_pairing.scalar_mul_rns).  base_inf: [B] identity
+    mask of the input ciphertexts (their raw residues are garbage).
+
+    The chain uses the incomplete mixed addition: candidate i hits
+    V == -addend only when m == (i+1)*bound (the true sum is the
+    identity and comes out as Z == 0), and V == +addend only after the
+    true hit at step i-2; a Z == 0 candidate keeps Z == 0 and is masked
+    from the lookup.  Returns (found {0,1}, m signed) int64 [B]."""
+    B = Xr.v.shape[-1]
+    inf2 = torch.cat([base_inf, base_inf], dim=-1).to(torch.int64)
+    hits, vals, mask4 = g1_rns_scan(ctx, rns, tables,
+                                    *g1_rns_lanes(rns, Xr, Yr, Zr), inf2,
+                                    tables.bound + 1)
     # csk == identity <=> m = 0 (candidate 0 is csk itself)
-    return _signed_result(hits, vals, bound, mask4[0, 0] | inf2[:B])
+    return _signed_result(hits, vals, tables.bound, mask4[0, 0] | inf2[:B])
 
 
-def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):
-    """GT giant-step scan for csk = (zr, zi) RVals [2k, B] (raw output of
-    rns_pairing.fp2_pow_rns).  GT inverses are conjugations (unitary
-    subgroup).  Returns (found {0,1}, m signed) int64 [B]."""
-    bound = tables.bound
-    k2 = 2 * rns.k
-    B = zr.v.shape[-1]
-    L = ctx.L
-
+def gt_rns_lanes(rns, zr, zi):
+    """csk (RVals [2k, B]) and its conjugate side by side: raw residues
+    [2k, 2B]."""
     negI = rns.kp[:, zi.bound:zi.bound + 1] - zi.v
     negI = torch.where(negI < 0, negI + rns.m, negI)
-    cr = torch.cat([zr.v, zr.v], dim=-1)                 # [2k, 2B]
-    ci = torch.cat([zi.v, negI], dim=-1)
+    return torch.cat([zr.v, zr.v], dim=-1), torch.cat([zi.v, negI], dim=-1)
 
+
+def gt_rns_scan(ctx: MontCtx, rns, tables: DecryptTables, cr, ci,
+                length: int):
+    """The RNS giant-step chain of F_p^2 products from the stacked lanes
+    (cr, ci) [2k, 2B] (`length` candidates, each taken as bound 9), their
+    canonical limbs and the digest lookup.  Returns (hits, vals) [length,
+    2, B] and the limbs (re, im) [L, length, 2, B]."""
+    k2 = 2 * rns.k
+    B = cr.shape[-1] // 2
+    L = ctx.L
+    C = length
     gr = rn.to_rns_mont(rns, tables.gamma_inv_gt[0].reshape(L, 1))
     gi = rn.to_rns_mont(rns, tables.gamma_inv_gt[1].reshape(L, 1))
     grb = rn.RVal(gr.v.expand(k2, 2 * B), 3)
     gib = rn.RVal(gi.v.expand(k2, 2 * B), 3)
 
-    Rs, Is = [], []
-    for _ in range(bound + 1):                  # collect BEFORE the mul
-        Rs.append(cr)
-        Is.append(ci)
+    Rs, Is = [cr], [ci]
+    for _ in range(C - 1):
         nr, ni = rp._fp2_mul(rns, (rn.RVal(cr, 9), rn.RVal(ci, 9)),
                              (grb, gib))
         cr, ci = nr.v, ni.v
-    C = bound + 1
+        Rs.append(cr)
+        Is.append(ci)
 
     def limbs(stack):
         flat = torch.stack(stack, dim=1).reshape(k2, C * 2 * B)
@@ -361,7 +395,17 @@ def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):
     rl, il = limbs(Rs), limbs(Is)
     words = torch.cat([rl, il], dim=0)                   # [2L, C, 2, B]
     hits, vals = _lookup(tables.table_gt, words)
+    return hits, vals, rl, il
+
+
+def bsgs_gt_rns(ctx: MontCtx, rns, tables: DecryptTables, zr, zi):
+    """GT giant-step scan for csk = (zr, zi) RVals [2k, B] (raw output of
+    rns_pairing.fp2_pow_rns).  GT inverses are conjugations (unitary
+    subgroup).  Returns (found {0,1}, m signed) int64 [B]."""
+    hits, vals, rl, il = gt_rns_scan(ctx, rns, tables,
+                                     *gt_rns_lanes(rns, zr, zi),
+                                     tables.bound + 1)
     # csk == 1 <=> m = 0: candidate 0 of the positive lane is csk
     one_ext = lb.expand_to(ctx.one, rl[:, 0, 0].shape)
     is_zero_ct = lb.eq(rl[:, 0, 0], one_ext) & lb.is_zero(il[:, 0, 0])
-    return _signed_result(hits, vals, bound, is_zero_ct)
+    return _signed_result(hits, vals, tables.bound, is_zero_ct)

@@ -170,6 +170,25 @@ Phases, each of which raises on failure (the script then exits nonzero):
      the truth); proofs/s and digests/s, and 4j's seconds by part;
      window_ladder_tab, pow_loop, mont_mul and dual_ladder must be
      launched (GADGET_PATH);
+  4k. the parallel layer on an NCCL group of world size 1
+     (parallel.multihost.initialize on a tcp store of a free local port;
+     process_info, the global mesh, BGNParams().make_mesh() None, a data
+     and a stage mesh): encrypt_sharded and mult_sharded on decrypt-batch
+     lanes torch.equal to the unsharded ops, replicate(pk.dev) leaving
+     every buffer equal; decrypt_g1_sharded and decrypt_gt_sharded on
+     decrypt-batch lanes of phase 4 and extra lanes (m = 0, negatives, an
+     L2 lane out of range) equal to decrypt_with_status, on the RNS route
+     and on the limb route of phase 4h's key; pairing_pipeline (one stage,
+     4 microbatches) torch.equal to pairing_rns over the bits of n on all
+     batch lanes of phase 4, each decrypted to m*k; every kernel of the
+     path launched (PARALLEL_PATH: dbl_step and add_step from the
+     pipeline); profiling.time_op of one sharded L2 decrypt and a
+     profiling.trace of one microbatch that names the dbl_step kernel;
+     cli.run_simple_check and run_poly_arithmetic_check at 512 bits
+     (every truth-table line exact, every poly value within 1e-3 of the
+     plaintexts' arithmetic); the native find_cofactor against the plain
+     loop, and the host keygen seconds of the 512-, 1024- and 2048-bit
+     keys;
   5. one call of each op under torch.profiler (the re-randomized Mult and
      L2 Add, the step-mode Mult, Encrypt and both decrypts, and the
      limb-mode Mult and Encrypt included): device busy time, idle share,
@@ -296,6 +315,13 @@ POLY_PATH = ("miller_loop", "pow_loop", "fp2_pow_loop", "dual_ladder",
 # (window_ladder_tab) and the digest's Montgomery exit and the limb
 # fallback (mont_mul); GOB_POLYS polys of the 100.1 batch through gob
 GADGET_PATH = ("window_ladder_tab", "pow_loop", "mont_mul", "dual_ladder")
+# phase 4k (the parallel layer at world size 1): encrypt_sharded
+# (dual_ladder), mult_sharded (miller_loop, pow_loop, fp2_pow_loop), the
+# sharded decrypts (ladder_loop, fp2_pow_loop, pow_loop; the limb route and
+# the per-rank offsets on mont_mul) and the pipeline (dbl_step, add_step,
+# and pow_loop, fp2_pow_loop in its final exponentiation)
+PARALLEL_PATH = ("dual_ladder", "miller_loop", "pow_loop", "fp2_pow_loop",
+                 "ladder_loop", "mont_mul", "dbl_step", "add_step")
 GOB_POLYS = 4
 # phase 4i's shapes: POLY_B polys per batch (bench.py's bench_poly_batched),
 # encrypted_dot over DOT_D coordinates of DOT_B vectors
@@ -499,8 +525,9 @@ def sass_counts(obj: Path, nvcc: str, opcode: str) -> dict:
 
 def keygen_2048(path: str, seed: int, repo: str) -> None:
     """Child process of phases 1-2: phase 4e's 2048-bit key and decryption
-    tables, built on the host (device="cpu": ~50 s of pure-Python number
-    theory and window tables) while phase 1 builds the kernels, saved to
+    tables, built on the host (device="cpu": the number theory, its prime
+    search in the native library, and the window tables in Python)
+    while phase 1 builds the kernels, saved to
     path (with its own seconds) for phase 4e to load and move to the
     card."""
     t0 = time.time()
@@ -642,8 +669,10 @@ def main() -> None:
     tables = pk.setup_decryption(sk, rng=rng)
     ctx, rns, dk = pk.dev.ctx, pk.dev.rns, pk.dev
     k, L = rns.k, ctx.L
+    t_keys = {"512 (phase 2)": time.time() - t0}
     log(f"keys: 512-bit, msg space 1021, k = {k} channels per base, "
-        f"L = {L} limbs, {time.time() - t0:.1f} s")
+        f"L = {L} limbs, {t_keys['512 (phase 2)']:.1f} s (host keygen and "
+        "tables, the native prime search)")
     t0 = time.time()
     key_proc.join()
     if key_proc.exitcode != 0:
@@ -1398,9 +1427,10 @@ def main() -> None:
     pk2, sk2 = scheme.keygen(1024, 1021, rng=rng2, device="cuda")
     tables2 = pk2.setup_decryption(sk2, rng=rng2)
     k2 = pk2.dev.rns.k
+    t_keys["1024 (phase 4c)"] = time.time() - t0
     log(f"keys: 1024-bit, msg space 1021, k = {k2} channels per base "
         f"(S = {cuda_rns.slots_for(k2)}), L = {pk2.dev.ctx.L} limbs, "
-        f"{time.time() - t0:.1f} s")
+        f"{t_keys['1024 (phase 4c)']:.1f} s")
     kernel_checks(pk2, sk2, 64, 64, args.seed + 3)
     Bw = args.wide_batch
     wrng = random.Random(args.seed + 4)
@@ -1562,6 +1592,7 @@ def main() -> None:
     # -- 4e. a 2048-bit key: the S = 12 kernels ---------------------------
     t0 = time.time()
     pk3, sk3, tables3, t_child = torch.load(key_path, weights_only=False)
+    t_keys["2048 (the child of phases 1-2)"] = t_child
     key_path.unlink()
     pk3.dev.to(dev)
     tables3 = tables3.to(dev)
@@ -1821,7 +1852,7 @@ def main() -> None:
                   ("DecryptL2", t_dec_h)):
         log(f"no-RNS key {op} {Bn / t:.1f} ops/s first call (B={Bn}) "
             f"[{card}]")
-    del pkn, skn, a_h, b_h, prod_h
+    del b_h                    # the key and a_h, prod_h stay for phase 4k
     phase_done("4h (key without an RNS context)")
 
     # -- 4i. the poly path, serialized, and the models -------------------
@@ -2228,6 +2259,180 @@ def main() -> None:
     del proof, words, msg, nz, sw, nn, small, pkg
     phase_done("4j (gob, conformance, gadgets)")
 
+    # -- 4k. the parallel layer at world size 1, the cli, the native keygen
+    import contextlib
+    import io
+    import socket
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from bgn_torch import cli, parallel
+    from bgn_torch.parallel import multihost as mh
+    from bgn_torch.parallel import pipeline as pp
+    from bgn_torch.parallel import sharded as sh
+    from bgn_torch.utils import native, profiling
+
+    parts, part_t = [], [time.time()]      # 4k's seconds by part
+
+    def ct_cat(u, v):
+        """Two ciphertext batches of one level side by side."""
+        if u.level2:
+            return scheme.Ciphertext(torch.cat([u.data, v.data], -1), True)
+        return scheme.Ciphertext(AffinePoint(*(
+            torch.cat([x, y], -1) for x, y in zip(u.data, v.data))), False)
+
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    mh.initialize(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        if tdist.get_backend() != "nccl":
+            raise AssertionError(f"backend {tdist.get_backend()}, not nccl")
+        gmesh = mh.make_global_mesh()
+        if mh.process_info() != (0, 1) or gmesh.size() != 1 \
+                or BGNParams().make_mesh() is not None:
+            raise AssertionError("world size 1: process_info, the global "
+                                 "mesh or BGNParams.make_mesh is wrong")
+        mesh = parallel.make_mesh(1)
+        smesh = parallel.make_mesh(1, pp.STAGE_AXIS)
+        log(f"parallel: a {tdist.get_backend()} group of 1 rank on tcp "
+            f"127.0.0.1:{port}, "
+            f"{gmesh}, {mesh}, {smesh}")
+        # one batch per level: phase 4's lanes, then m = 0 and negatives,
+        # and (L2) one lane out of range (50 * 50 > bound^2 + bound); the
+        # limb route takes phase 4h's key (the same key without its RNS
+        # context, whose ciphertexts 4h found bit-equal) on its first Bn
+        # lanes and the same extra lanes
+        xs = [0, -1, -5, -100, -1000, 7]
+        xr = [mrng.randrange(pk.n) for _ in xs]
+        e1 = pk.encrypt_with_randomness(xs, xr)
+        e2 = pk.mult(pk.encrypt_with_randomness(xs + [50], xr + [3]),
+                     pk.encrypt_with_randomness([1] * 6 + [50], xr + [4]))
+        batches = {"L1": (ct_cat(a[:Bd], e1), ct_cat(a_h, e1)),
+                   "L2": (ct_cat(prod[:Bd], e2), ct_cat(prod_h, e2))}
+        fns = {"L1": sh.decrypt_g1_sharded, "L2": sh.decrypt_gt_sharded}
+        rep_before = [t.clone() for t in pk.dev.buffers()]
+        tpar, got = {}, {}         # label -> (lanes, seconds); results
+        part("start-up, extra lanes")
+        zero_counts()
+        (dp_a, dp_prod), t = timed(lambda: (
+            sh.encrypt_sharded(pk, ms[:Bd], mesh, rng=random.Random(41)),
+            sh.mult_sharded(pk, a[:Bd], b[:Bd], mesh)))
+        tpar["DP Encrypt + Mult"] = (Bd, t)
+        replicate_ok = all(torch.equal(x, y) for x, y in zip(
+            parallel.replicate(pk.dev, mesh).buffers(), rep_before))
+        for lvl, (c_rns, c_limb) in batches.items():
+            for route, key, skey, c in (("rns", pk, sk, c_rns),
+                                        ("limb", pkn, skn, c_limb)):
+                got[route, lvl], t = timed(
+                    lambda: fns[lvl](key, skey, tables, c, mesh))
+                tpar[f"sharded Decrypt {lvl} ({route} route)"] = (
+                    c.batch_shape[0], t)
+        part("DP ops, sharded decrypts")
+        z_pipe, t = timed(
+            lambda: pp.pairing_pipeline(pk.dev, a.data, b.data, smesh, 4))
+        tpar["pipelined pairings (S = 1, 4 microbatches)"] = (B, t)
+        launches_par = read_counts("parallel", PARALLEL_PATH)
+        part("pipeline")
+
+        # the checks, after the count
+        if not ct_equal(dp_a, pk.encrypt(ms[:Bd], rng=random.Random(41))) \
+                or not ct_equal(dp_prod, prod[:Bd]) or not replicate_ok:
+            raise AssertionError("DP Encrypt / Mult / replicate differ from "
+                                 "the unsharded ops")
+        for lvl, (c_rns, _) in batches.items():
+            m2, f2 = sk.decrypt_with_status(c_rns, pk, tables)
+            limb_lanes = list(range(Bn)) + list(range(Bd, len(f2)))
+            for route, lanes in (("rns", slice(None)), ("limb", limb_lanes)):
+                (m1, f1), mw, fw = got[route, lvl], m2[lanes], f2[lanes]
+                if list(f1) != list(fw) or list(m1[f1]) != list(mw[fw]):
+                    raise AssertionError(f"sharded decrypt {lvl} ({route} "
+                                         "route) != decrypt_with_status")
+        nf = [int((~got[r, "L2"][1]).sum()) for r in ("rns", "limb")]
+        if nf != [1, 1] or not all(got[r, "L1"][1].all()
+                                   for r in ("rns", "limb")):
+            raise AssertionError(f"lanes not found: {nf} (L2), want 1 each")
+        z_ref = rp.pairing_rns(ctx, rns, a.data, b.data, dk.n_bits,
+                               dk.l_bits)
+        if not torch.equal(z_pipe, z_ref):
+            raise AssertionError("pairing_pipeline != pairing_rns")
+        decrypt_all(sk, pk, tables, scheme.Ciphertext(z_pipe, True),
+                    [m * kk for m, kk in zip(ms, ks)], "pipeline (m*k)", Bd)
+        log(f"parallel: DP Encrypt and Mult equal the unsharded ops on {Bd} "
+            f"lanes, replicate(pk.dev) left every buffer equal; the sharded "
+            f"decrypts, RNS route ({Bd} + {len(xs)} L1, {Bd} + "
+            f"{len(xs) + 1} L2 lanes) and limb route (phase 4h's key, "
+            f"{Bn} + {len(xs)} L1, {Bn} + {len(xs) + 1} L2 lanes), equal "
+            "decrypt_with_status, the one L2 lane out of range not found; "
+            "the pipeline (S = 1, 4 microbatches) equals pairing_rns on all "
+            f"{B} lanes")
+        for what, (n, t) in tpar.items():
+            log(f"{what}: {n / t:.1f} ops/s first call (B={n}, {t:.3f} s) "
+                f"[{card}]")
+        part("checks")
+        t_gt = profiling.time_op(sh.decrypt_gt_sharded, pk, sk, tables,
+                                 prod[:Bd], mesh, iters=1, warmup=0)
+        log(f"profiling.time_op: decrypt_gt_sharded {t_gt * 1e3:.1f} ms "
+            f"(B={Bd}) [{card}]")
+        mb_ = B // 4
+        with tempfile.TemporaryDirectory() as tdir:
+            with profiling.trace(tdir):
+                pp.pairing_pipeline(pk.dev, a[:mb_].data, b[:mb_].data,
+                                    smesh, 1)
+            text = "".join(Path(f).read_text()
+                           for f in Path(tdir).glob("trace_*.json"))
+        if "bgn_dbl_step" not in text:
+            raise AssertionError("the pipeline's trace names no dbl_step "
+                                 "kernel")
+        log(f"profiling.trace: one microbatch ({mb_} lanes), "
+            f"{len(text)} bytes of Chrome trace naming bgn_dbl_step")
+        part("profiling")
+    finally:
+        tdist.destroy_process_group()
+    del pkn, skn, a_h, prod_h, e1, e2, batches, got, z_pipe, z_ref
+    del dp_a, dp_prod
+
+    # the demo checks of cli.py on the card (two 512-bit keys)
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        simple = cli.run_simple_check(512, 3, seed=1, device="cuda")
+        poly = cli.run_poly_arithmetic_check(512, 1021, 3, 3, 0.0001, seed=1,
+                                             device="cuda")
+    text = out.getvalue()
+    lines = re.findall(r"^([-()01 +*]+) = (-?\d+)$", text, re.M)
+    if len(lines) != 18 or any(
+            int(v) != eval(e, {"__builtins__": {}}) for e, v in lines) \
+            or any(r[1] != r[2] for r in simple):
+        raise AssertionError(f"cli truth table wrong:\n{text}")
+    for label, want, val in poly:
+        if abs(val - float(want)) > 1e-3 * abs(float(want)) \
+                or f"E({val})" not in text:
+            raise AssertionError(f"cli poly {label}: {val} against {want}")
+    log(f"cli: the truth table (18 lines) exact and the {len(poly)} poly "
+        f"values within 1e-3 of the plaintexts' arithmetic, "
+        f"{time.time() - t0:.1f} s with two 512-bit keygens [{card}]")
+    part("cli")
+
+    # the native host-math library
+    t0 = time.time()
+    l_nat = native.find_cofactor(pk.n)
+    t_nat = time.time() - t0
+    t0 = time.time()
+    l_plain = hm.find_cofactor_plain(pk.n)
+    t_plain = time.time() - t0
+    if l_nat != l_plain or l_nat != pk.l:
+        raise AssertionError(f"find_cofactor {l_nat} != plain {l_plain}")
+    log(f"native: find_cofactor(n) of phase 2's key = {l_nat}, "
+        f"{t_nat * 1e3:.1f} ms against the plain loop's {t_plain * 1e3:.1f} "
+        "ms; host keygen seconds: "
+        + ", ".join(f"{kb} {t:.1f}" for kb, t in t_keys.items())
+        + f" [{card}]")
+    part("native")
+    log("4k by part: " + ", ".join(parts) + f" [{card}]")
+    phase_done("4k (parallel, cli, native keygen)")
+
     # -- 5. where the time goes: one profiled call of each op ------------
     for label, fn in (("Encrypt", lambda: pk.encrypt_with_randomness(ms, rs)),
                       ("Mult", lambda: pk.mult(a, b)),
@@ -2303,16 +2508,16 @@ def main() -> None:
         recs = results[name]
         main = recs[0]
         if name in STEP_PATH:          # the per-step configuration
-            launches = launches_step[name]
-            paths = ("step",)
+            launches = launches_step[name] + launches_par[name]
+            paths = ("step", "parallel")
         elif name in digit_names:      # the limb-domain configuration
             launches = launches_digit[name]
             paths = ("limb-domain",)
         else:
             launches = (launches_main[name] + launches_l1[name]
                         + launches_limb[name] + launches_poly[name]
-                        + launches_gadgets[name])
-            paths = ("main", "L1", "limb", "poly", "gadgets")
+                        + launches_gadgets[name] + launches_par[name])
+            paths = ("main", "L1", "limb", "poly", "gadgets", "parallel")
         splits = {}
         for path in paths:
             for split, counts_by in splits_of[path][name].items():
@@ -2333,7 +2538,8 @@ def main() -> None:
                                  "limb_domain": launches_digit[name],
                                  "no_rns": launches_norns[name],
                                  "poly": launches_poly[name],
-                                 "gadgets": launches_gadgets[name]},
+                                 "gadgets": launches_gadgets[name],
+                                 "parallel": launches_par[name]},
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -329,8 +329,9 @@ def test_bgn_params_match_jax(monkeypatch):
     tconfig.BGNParams(rns_miller="auto", fused_miller=True) \
         .apply_kernel_modes()
     assert tpairing.use_rns(object()) and tpairing._USE_FUSED is True
-    with pytest.raises(NotImplementedError, match="parallel"):
-        tconfig.BGNParams().make_mesh()
+    assert tconfig.BGNParams().make_mesh() is None   # no group: 1 rank
+    with pytest.raises(ValueError, match="n_devices=2"):
+        tconfig.BGNParams(n_devices=2).make_mesh()
     tconfig.BGNParams(rns_miller="1", pallas=True).apply_kernel_modes()
     assert trp._mode() == "loop"
     tconfig.BGNParams(rns_pallas="1").apply_kernel_modes()
