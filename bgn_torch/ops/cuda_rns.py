@@ -6,7 +6,9 @@ the plain version (the step functions of ops/rns_pairing.py, under Python
 loops for a loop kernel: the counterpart of the JAX package's XLA path); a
 CUDA tensor launches the hand-written kernel in `bgn_torch/csrc/` or
 raises.  Every wrapper counts its kernel launches in a plain integer
-attribute `launches`; only a launch adds to it.
+attribute `launches`; only a launch adds to it.  Every wrapper runs inside
+a span kernels.<name> (utils/profiling.py) that counts those launches; on
+the CPU the span holds the plain version.
 
 A loop kernel runs a whole ladder, Miller loop or exponentiation; the
 per-step configuration (config.BGNParams(rns_pallas="1")) runs the same
@@ -63,6 +65,7 @@ from .._build import launch as _launch
 from .._build import ptr as _ptr
 from ..fieldcore import rns as rn
 from ..fieldcore.rns import RNSCtx, RVal
+from ..utils import profiling
 from . import rns_pairing as rp
 
 # A TF32 matmul keeps a 10-bit mantissa and breaks the exact fp32 integer
@@ -293,6 +296,7 @@ def miller_loop_plain(rns: RNSCtx, ax, ay, xb, yb, digits):
                          add_step_plain)
 
 
+@profiling.traced("kernels", launches=True)
 def miller_loop(rns: RNSCtx, ax, ay, xb, yb, digits):
     """Wrapper: the whole Miller loop as one kernel on the card, blocks of
     lanes (csrc/rns_tc.cuh TcLanes) whose base extensions run on the
@@ -334,6 +338,7 @@ def pow_loop_plain(rns: RNSCtx, x, bits):
     return _pow_chain(rns, x, bits, pow_step_plain)
 
 
+@profiling.traced("kernels", launches=True)
 def pow_loop(rns: RNSCtx, x, bits):
     """Wrapper: x^e in F_p as one kernel on the card; x [2k, N]."""
     if _is_cpu(x):
@@ -380,6 +385,7 @@ def fp2_pow_loop_plain(rns: RNSCtx, xr, xi, digits):
     return _fp2_chain(rns, xr, xi, digits, fp2_pow_step_plain)
 
 
+@profiling.traced("kernels", launches=True)
 def fp2_pow_loop(rns: RNSCtx, xr, xi, digits):
     """Wrapper: the F_p^2 power as one kernel on the card."""
     if _is_cpu(xr):
@@ -500,6 +506,7 @@ def dual_ladder_plain(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
                 l2, Z2, torch.zeros_like(Z2)))))
 
 
+@profiling.traced("kernels", launches=True)
 def dual_ladder(rns: RNSCtx, p_tab, q_tab, Jm: int, digits, m_neg):
     """Wrapper: the fused Encrypt core as one kernel on the card, blocks
     of lanes whose base extensions run on the tensor cores (as
@@ -558,6 +565,7 @@ def ladder_loop_plain(rns: RNSCtx, X, Y, Z, ax, ay, digits):
                          pt_add_plain)
 
 
+@profiling.traced("kernels", launches=True)
 def ladder_loop(rns: RNSCtx, X, Y, Z, ax, ay, digits):
     """Wrapper: the whole ladder as one kernel on the card, blocks of
     lanes (csrc/rns_tc.cuh TcLanes) whose base extensions run on the
@@ -603,6 +611,7 @@ def window_ladder_tab_plain(rns: RNSCtx, tab, digits):
     return window_ladder_plain(rns, *_gather_rows(tab, digits), digits == 0)
 
 
+@profiling.traced("kernels", launches=True)
 def window_ladder_tab(rns: RNSCtx, tab, digits):
     """Wrapper: the chain with in-kernel row reads, one kernel on the
     card, blocks of lanes whose base extensions run on the tensor cores
@@ -642,6 +651,7 @@ window_ladder_tab.launches_by_jd = {}
 # ---------------------------------------------------------------------------
 
 
+@profiling.traced("kernels", launches=True)
 def window_ladder(rns: RNSCtx, gx, gy, ginf):
     """Wrapper: the chain over a gathered stream, one kernel on the card,
     blocks of lanes whose base extensions run on the tensor cores (as
@@ -706,6 +716,7 @@ def dbl_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
     return rp._dbl_step(rns, X, Y, Z, fr, fi, rp._pt(xb), rp._pt(yb))
 
 
+@profiling.traced("kernels", launches=True)
 def dbl_step(rns: RNSCtx, X, Y, Z, fr, fi, xb, yb):
     """Wrapper: one Miller doubling step as one kernel on the card, blocks
     of lanes whose base extensions run on the tensor cores (as
@@ -726,6 +737,7 @@ def add_step_plain(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
                         rp._pt(xb), rp._pt(yb))
 
 
+@profiling.traced("kernels", launches=True)
 def add_step(rns: RNSCtx, X, Y, Z, fr, fi, ax, ay, xb, yb):
     """Wrapper: one Miller addition step as one kernel on the card, blocks
     of lanes whose base extensions run on the tensor cores (as
@@ -746,6 +758,7 @@ def pt_dbl_plain(rns: RNSCtx, X, Y, Z):
     return rp._dbl_pt(rns, X, Y, Z)
 
 
+@profiling.traced("kernels", launches=True)
 def pt_dbl(rns: RNSCtx, X, Y, Z):
     """Wrapper: one Jacobian doubling as one kernel on the card, blocks of
     lanes whose base extensions run on the tensor cores (as dbl_step's);
@@ -765,6 +778,7 @@ def pt_add_plain(rns: RNSCtx, X, Y, Z, ax, ay):
     return rp._add_pt(rns, X, Y, Z, rp._pt(ax), rp._pt(ay))
 
 
+@profiling.traced("kernels", launches=True)
 def pt_add(rns: RNSCtx, X, Y, Z, ax, ay):
     """Wrapper: one mixed addition as one kernel on the card, blocks of
     lanes whose base extensions run on the tensor cores (as dbl_step's),
@@ -786,6 +800,7 @@ def pow_step_plain(rns: RNSCtx, acc, x, bit: int):
     return rn.r_mul(rns, sq, RVal(x, 16)).v if bit > 0 else sq.v
 
 
+@profiling.traced("kernels", launches=True)
 def pow_step(rns: RNSCtx, acc, x, bit: int):
     """Wrapper: one F_p square-and-multiply step as one kernel on the
     card, blocks of lanes whose base extensions run on the tensor cores
@@ -811,6 +826,7 @@ def fp2_pow_step_plain(rns: RNSCtx, ar, ai, xr, xi, bit: int):
     return sq[0].v, sq[1].v
 
 
+@profiling.traced("kernels", launches=True)
 def fp2_pow_step(rns: RNSCtx, ar, ai, xr, xi, bit: int):
     """Wrapper: one F_p^2 square-and-multiply step as one kernel on the
     card, blocks of lanes whose base extensions run on the tensor cores

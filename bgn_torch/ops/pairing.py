@@ -38,6 +38,7 @@ import torch
 from ..fieldcore import limbs as lb
 from ..fieldcore import montgomery as mg
 from ..fieldcore.montgomery import MontCtx
+from ..utils import profiling
 from . import cuda_pairing
 from . import cuda_rns
 from . import fp2
@@ -59,7 +60,8 @@ def _miller_bits(n_bits):
     """The bits of n the loop steps over, as host ints (one copy from the
     device per call, so no step synchronizes): those after the MSB, less
     the last (its addition is the elided vertical line); None for n < 2."""
-    bits = cuda_rns._digits_host(n_bits)
+    with profiling.span("wait.digits_to_host"):
+        bits = cuda_rns._digits_host(n_bits)
     start = next((i for i, v in enumerate(bits[:-1]) if v), None)
     return None if start is None else bits[start + 1:-1]
 
@@ -163,5 +165,6 @@ def pairing(ctx: MontCtx, a: AffinePoint, b: AffinePoint, n_bits, l_bits,
                                  l_bits)
     else:
         z = final_exponentiation(ctx, miller_loop(ctx, a, b, n_bits), l_bits)
-    trivial = a.inf | b.inf
-    return fp2.select(trivial, fp2.one(ctx, tuple(z.shape[2:])), z)
+    with profiling.span("glue.select"):
+        trivial = a.inf | b.inf
+        return fp2.select(trivial, fp2.one(ctx, tuple(z.shape[2:])), z)

@@ -26,6 +26,7 @@ from ..fieldcore import limbs as lb
 from ..fieldcore import rns as rn
 from ..fieldcore.montgomery import MontCtx
 from ..fieldcore.rns import RNSCtx, RVal
+from ..utils import profiling
 from .curve import AffinePoint, JacPoint
 
 # Loop-invariant bounds (multiples of p).
@@ -49,6 +50,25 @@ def _mode() -> str:
         return "step"
     raise ValueError(f"unknown kernel granularity {_PALLAS_MODE!r} "
                      "(the port runs 'loop' and '1')")
+
+
+def _digits_on(digits, device) -> torch.Tensor:
+    """Shared digits as a tensor on `device` for a loop kernel; a host
+    array is copied there, a wait (a pageable copy synchronizes)."""
+    if isinstance(digits, torch.Tensor) and digits.device == device:
+        return digits
+    with profiling.span("wait.digits_to_device"):
+        return torch.as_tensor(digits).to(device)
+
+
+def _digits_on_host(digits):
+    """Shared digits as host ints for a host loop of step launches;
+    reading a tensor is a wait."""
+    from . import cuda_rns
+    if not isinstance(digits, torch.Tensor):
+        return digits
+    with profiling.span("wait.digits_to_host"):
+        return cuda_rns._digits_host(digits)
 
 
 def _pt(v):
@@ -354,11 +374,12 @@ def scalar_mul_rns(ctx: MontCtx, rns: RNSCtx, base: AffinePoint, digits):
     ay = rn.to_rns_mont(rns, base.y.reshape(ctx.L, flat)).v.contiguous()
     one = rns.one_rns.expand_as(ax).contiguous()
     if _mode() == "loop":
-        X, Y, Z = cuda_rns.ladder_loop(rns, ax, ay, one, ax, ay, digits[1:])
+        X, Y, Z = cuda_rns.ladder_loop(rns, ax, ay, one, ax, ay,
+                                       _digits_on(digits[1:], ax.device))
     else:
         X, Y, Z = cuda_rns._ladder_chain(rns, ax, ay, one, ax, ay,
-                                         digits[1:], cuda_rns.pt_dbl,
-                                         cuda_rns.pt_add)
+                                         _digits_on_host(digits[1:]),
+                                         cuda_rns.pt_dbl, cuda_rns.pt_add)
     return RVal(X, _BX), RVal(Y, _BY), RVal(Z, _BZ)
 
 
@@ -431,18 +452,21 @@ def _rns_pow(rns: RNSCtx, x: RVal, bits) -> RVal:
     xv = x.v.contiguous()
     if _mode() == "loop":
         return RVal(cuda_rns.pow_loop(rns, xv, bits), 3)
-    return RVal(cuda_rns._pow_chain(rns, xv, bits, cuda_rns.pow_step), 3)
+    return RVal(cuda_rns._pow_chain(rns, xv, _digits_on_host(bits),
+                                    cuda_rns.pow_step), 3)
 
 
 def _fp2_inv(rns, x, pm2_bits):
     """1/(a+bi) = (a-bi)/(a^2+b^2); the Fermat inversion of the norm is
     one _rns_pow."""
     a, b = x
-    aa, bb = rn.r_mul_many(rns, [(a, a), (b, b)])
-    norm = rn.r_add(rns, aa, bb)
+    with profiling.span("glue.fp2"):
+        aa, bb = rn.r_mul_many(rns, [(a, a), (b, b)])
+        norm = rn.r_add(rns, aa, bb)
     ninv = _rns_pow(rns, norm, pm2_bits)
-    nb = rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
-    return rn.r_mul(rns, a, ninv), rn.r_mul(rns, nb, ninv)
+    with profiling.span("glue.fp2"):
+        nb = rn.r_sub(rns, rn.r_zero(rns, b.v.shape[1]), b)
+        return rn.r_mul(rns, a, ninv), rn.r_mul(rns, nb, ninv)
 
 
 def _fp2_pow_bits(rns, x, digits, unitary=False):
@@ -451,19 +475,22 @@ def _fp2_pow_bits(rns, x, digits, unitary=False):
     fp2_pow_loop launch, or in step mode one fp2_pow_step launch per
     digit.  Negative digits of a non-unitary x raise before any launch."""
     from . import cuda_rns
-    digits = torch.as_tensor(digits)
-    if not unitary:
-        if bool((digits < 0).any()):
-            raise ValueError(
-                "non-unitary fp2 pow requires nonnegative digits "
-                "(signed NAF needs unitary=True)")
-    xr, xi = x
-    assert xr.bound <= 9 and xi.bound <= 10, (xr.bound, xi.bound)
-    xrv, xiv = xr.v.contiguous(), xi.v.contiguous()
+    with profiling.span("glue.fp2"):
+        if not unitary:
+            with profiling.span("wait.fp2_pow_sign"):
+                negative = bool((torch.as_tensor(digits) < 0).any())
+            if negative:
+                raise ValueError(
+                    "non-unitary fp2 pow requires nonnegative digits "
+                    "(signed NAF needs unitary=True)")
+        xr, xi = x
+        assert xr.bound <= 9 and xi.bound <= 10, (xr.bound, xi.bound)
+        xrv, xiv = xr.v.contiguous(), xi.v.contiguous()
     if _mode() == "loop":
-        ar, ai = cuda_rns.fp2_pow_loop(rns, xrv, xiv, digits)
+        ar, ai = cuda_rns.fp2_pow_loop(rns, xrv, xiv,
+                                       _digits_on(digits, xrv.device))
     else:
-        ar, ai = cuda_rns._fp2_chain(rns, xrv, xiv, digits,
+        ar, ai = cuda_rns._fp2_chain(rns, xrv, xiv, _digits_on_host(digits),
                                      cuda_rns.fp2_pow_step)
     return RVal(ar, 9), RVal(ai, 9)
 
@@ -508,9 +535,11 @@ def fp2_pow_rns(ctx: MontCtx, rns: RNSCtx, z, digits, unitary=False,
 
 def final_exponentiation_rns(ctx: MontCtx, rns: RNSCtx, f, l_bits):
     """f^((p^2-1)/n) = (conj(f)/f)^l entirely in RNS."""
-    inv = _fp2_inv(rns, f, ctx.pm2_bits)
-    w = _fp2_mul(rns, _fp2_conj(rns, f), inv)
-    return _fp2_pow_bits(rns, w, l_bits)
+    with profiling.span("pairing.final_exp"):
+        inv = _fp2_inv(rns, f, ctx.pm2_bits)
+        with profiling.span("glue.fp2"):
+            w = _fp2_mul(rns, _fp2_conj(rns, f), inv)
+        return _fp2_pow_bits(rns, w, l_bits)
 
 
 def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
@@ -531,12 +560,16 @@ def _miller_f_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
             rns, lb.expand_to(x, (L,) + tuple(batch_shape)).reshape(L, flat))
 
     from . import cuda_rns
-    ax, ay, xb, yb = (prep(v).v.contiguous() for v in (a.x, a.y, b.x, b.y))
-    if _mode() == "loop":
-        fr, fi = cuda_rns.miller_loop(rns, ax, ay, xb, yb, n_digits)
-    else:
-        fr, fi = cuda_rns._miller_chain(rns, ax, ay, xb, yb, n_digits,
-                                        cuda_rns.dbl_step, cuda_rns.add_step)
+    with profiling.span("pairing.miller"):
+        with profiling.span("glue.to_rns"):
+            ax, ay, xb, yb = (prep(v).v.contiguous()
+                              for v in (a.x, a.y, b.x, b.y))
+        if _mode() == "loop":
+            fr, fi = cuda_rns.miller_loop(rns, ax, ay, xb, yb, n_digits)
+        else:
+            fr, fi = cuda_rns._miller_chain(
+                rns, ax, ay, xb, yb, _digits_on_host(n_digits),
+                cuda_rns.dbl_step, cuda_rns.add_step)
     return (RVal(fr, _BF), RVal(fi, _BF)), tuple(batch_shape)
 
 
@@ -546,6 +579,7 @@ def pairing_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint, b: AffinePoint,
     conversion at exit: [2, L, *batch] limb-Montgomery."""
     f, batch_shape = _miller_f_rns(ctx, rns, a, b, n_digits)
     zr, zi = final_exponentiation_rns(ctx, rns, f, l_bits)
-    out_re = rn.from_rns_mont(rns, zr).reshape((ctx.L,) + batch_shape)
-    out_im = rn.from_rns_mont(rns, zi).reshape((ctx.L,) + batch_shape)
-    return torch.stack([out_re, out_im], dim=0)
+    with profiling.span("glue.from_rns"):
+        out_re = rn.from_rns_mont(rns, zr).reshape((ctx.L,) + batch_shape)
+        out_im = rn.from_rns_mont(rns, zi).reshape((ctx.L,) + batch_shape)
+        return torch.stack([out_re, out_im], dim=0)

@@ -58,6 +58,7 @@ from .ops import pairing as pairing_mod
 from .ops import rns_pairing
 from .ops.curve import AffinePoint
 from .utils import convert
+from .utils import profiling
 from .utils import rng as rng_mod
 
 # Limb head-room beyond key_bits for the cofactor l (p = l*n - 1).
@@ -167,12 +168,14 @@ class BGNPublicKey:
         self._encoding_tables = None  # encoding.compute_encoding_table
         self._sampler_ctx = None      # lazy MontCtx mod n (encrypt_device)
 
+    @profiling.traced("scheme")
     def encrypt(self, ms: Sequence[int], rng=None) -> "Ciphertext":
         """Randomized encryption of a batch of ints (Encrypt, bgn.go:334)."""
         ms = _to_list(ms)
         rs = [_rand_below(self.n, rng) for _ in ms]
         return self.encrypt_with_randomness(ms, rs)
 
+    @profiling.traced("scheme")
     def encrypt_with_randomness(self, ms, rs) -> "Ciphertext":
         """C = P^m * Q^r (EncryptWithRandomness, bgn.go:340-353).  The
         batch is padded to a power of two (min 8) as in the JAX package;
@@ -188,6 +191,7 @@ class BGNPublicKey:
         pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
         return Ciphertext(pt, level2=False)[:B]
 
+    @profiling.traced("scheme")
     def encrypt_device(self, ms, generator: torch.Generator) -> "Ciphertext":
         """Randomized encryption with the randomness drawn on the device:
         the exponent r of Q^r is 16-bit limbs from `generator` (a
@@ -206,6 +210,7 @@ class BGNPublicKey:
         pt = _encrypt_kernel(self.dev, m_digits, m_neg, r_digits)
         return Ciphertext(pt, level2=False)[:B]
 
+    @profiling.traced("scheme")
     def encrypt_deterministic(self, ms) -> "Ciphertext":
         """C = P^m (EncryptDeterministic, bgn.go:325-331); the batch is
         padded to a power of two (min 8) as in encrypt_with_randomness."""
@@ -215,10 +220,12 @@ class BGNPublicKey:
         return Ciphertext(_encrypt_det_kernel(self.dev, m_digits, m_neg),
                           level2=False)[:B]
 
+    @profiling.traced("scheme")
     def encrypt_zero(self, batch: int = 1) -> "Ciphertext":
         """E_det(0) = O (encryptZero, bgn.go:562-564)."""
         return self.encrypt_deterministic([0] * batch)
 
+    @profiling.traced("scheme")
     def add(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
         """Homomorphic addition with level promotion (Add, bgn.go:442).
         rng: the re-randomization's source, which a deterministic key
@@ -230,6 +237,7 @@ class BGNPublicKey:
         out = _add_l1_kernel(self.dev, a.data, b.data)
         return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
+    @profiling.traced("scheme")
     def sub(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
         """Homomorphic subtraction (Sub, bgn.go:375-433; the bgn.go:411
         level-flag bug is not replicated)."""
@@ -240,12 +248,14 @@ class BGNPublicKey:
         out = _sub_l1_kernel(self.dev, a.data, b.data)
         return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
+    @profiling.traced("scheme")
     def neg(self, a: "Ciphertext", rng=None) -> "Ciphertext":
         """Additive inverse: Sub(E_det(0), c) (Neg, bgn.go:436-439)."""
         zero = self.encrypt_zero(batch=_flat(a.batch_shape)) \
             .reshape(a.batch_shape)
         return self.sub(zero, a, rng=rng)
 
+    @profiling.traced("scheme")
     def mult(self, a: "Ciphertext", b: "Ciphertext", rng=None) -> "Ciphertext":
         """Ciphertext-ciphertext multiply via the pairing (Mult,
         bgn.go:294): two L1 inputs, one L2 result."""
@@ -254,6 +264,7 @@ class BGNPublicKey:
         out = _mult_kernel(self.dev, a.data, b.data)
         return Ciphertext(self._rerandomize_l2(out, rng), level2=True)
 
+    @profiling.traced("scheme")
     def mult_const(self, a: "Ciphertext", ks, rng=None) -> "Ciphertext":
         """Multiply by plaintext constant(s): C^k (MultConst, bgn.go:253).
 
@@ -280,6 +291,7 @@ class BGNPublicKey:
         out = kern(self.dev, a.data, k_bits, k_neg)
         return Ciphertext(self._rerandomize_l1(out, rng), level2=False)
 
+    @profiling.traced("scheme")
     def make_l2(self, a: "Ciphertext") -> "Ciphertext":
         """Promote L1 -> L2 via e(C, P) (makeL2, bgn.go:316-321)."""
         if a.level2:
@@ -340,6 +352,7 @@ class BGNSecretKey:
         self.q1_naf, _ = _exp_digits(
             a1_params.q1, nb, (a1_params.q1, a1_params.q2, a1_params.n))
 
+    @profiling.traced("scheme")
     def decrypt(self, ct: "Ciphertext", pk: BGNPublicKey,
                 tables: bsgs_mod.DecryptTables):
         """Batched decrypt; raises if any element is out of range."""
@@ -348,19 +361,22 @@ class BGNSecretKey:
             raise ValueError("cannot find discrete log; out of bounds")
         return vals
 
+    @profiling.traced("scheme")
     def decrypt_failsafe(self, ct: "Ciphertext", pk: BGNPublicKey,
                          tables: bsgs_mod.DecryptTables):
         """Failed lanes decrypt to 0 (DecryptFailSafe, bgn.go:210-216)."""
         vals, ok = self.decrypt_with_status(ct, pk, tables)
         return np.where(ok, vals, 0)
 
+    @profiling.traced("scheme")
     def decrypt_with_status(self, ct: "Ciphertext", pk: BGNPublicKey,
                             tables: bsgs_mod.DecryptTables):
         """Returns (values int64 [batch], ok bool [batch])."""
         kern = _decrypt_l2_kernel if ct.level2 else _decrypt_l1_kernel
         found, m = kern(pk.dev, tables, self.q1_bits, ct.data, self.q1_naf)
-        return (np.atleast_1d(m.cpu().numpy()).astype(np.int64),
-                np.atleast_1d(found.cpu().numpy()).astype(bool))
+        with profiling.span("wait.decrypt_status"):
+            return (np.atleast_1d(m.cpu().numpy()).astype(np.int64),
+                    np.atleast_1d(found.cpu().numpy()).astype(bool))
 
 
 @dataclasses.dataclass(frozen=True)
