@@ -55,6 +55,8 @@ _SIGNATURES = {
     "bgn_pow_step": [_P, _P, _I, _I, _P, _P, _I, _P, _I, _P],
     "bgn_fp2_pow_step": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I,
                          _P],
+    # the exit conversion: (..., exit blob, L, x0, x1, out, n, halves)
+    "bgn_rns_exit": [_P, _P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _P],
     # the digit-domain Miller steps: (inputs, outputs, p, L, n)
     "bgn_miller_dbl_digits": [_P] * 13 + [_I, _I, _P],
     "bgn_miller_add_digits": [_P] * 15 + [_I, _I, _P],

@@ -3,9 +3,9 @@
 // the product every RNS kernel runs (miller_loop.cu, ladder_loop.cu,
 // pow_loop.cu, fp2_pow_loop.cu, dual_ladder.cu, window_ladder_tab.cu,
 // window_ladder.cu, dbl_step.cu, add_step.cu, pt_dbl.cu, pt_add.cu,
-// pow_step.cu and fp2_pow_step.cu).  Its specification is the plain
-// version's r_mul (fieldcore/rns.py): the same channelwise steps, the
-// same alpha estimates and the same exact extension sums.
+// pow_step.cu, fp2_pow_step.cu and rns_exit.cu).  Its specification is
+// the plain version's r_mul (fieldcore/rns.py): the same channelwise
+// steps, the same alpha estimates and the same exact extension sums.
 //
 // Why the tensor cores: a base extension is a matrix-vector product of
 // the k x k extension matrix and a lane's k source residues.  Run by one

@@ -385,7 +385,9 @@ def limbs_to_rns(rns: RNSCtx, x: torch.Tensor) -> torch.Tensor:
 
 
 def rns_to_limbs(rns: RNSCtx, x: RVal) -> torch.Tensor:
-    """Exact CRT: residues (value < 8p) -> canonical int64 limbs [L, N] < p.
+    """Exact CRT: residues (value < 8p) -> int64 limbs [L, N] of the value
+    less p at most twice: canonical (< p) for a value below 3p, as every
+    r_mul output is.
 
     x = sum_i xhat_i*(A/a_i) - alpha*A with alpha exact, assembled in
     8-bit digit rows with a signed carry ripple, then reduced by up to two
@@ -428,7 +430,16 @@ def to_rns_mont(rns: RNSCtx, x_mont_limbs: torch.Tensor) -> RVal:
     return r_mul(rns, RVal(v, 1), RVal(rns.c_in.expand_as(v), 1))
 
 
-def from_rns_mont(rns: RNSCtx, x: RVal) -> torch.Tensor:
-    """RNS Montgomery form -> limb Montgomery form (x*R mod p)."""
-    cb = RVal(rns.c_out.expand_as(x.v), 1)
-    return rns_to_limbs(rns, r_mul(rns, x, cb))
+def from_rns_mont(rns: RNSCtx, x: RVal, y: RVal | None = None
+                  ) -> torch.Tensor:
+    """RNS Montgomery form -> limb Montgomery form (x*R mod p): canonical
+    int64 limbs [L, N]; with y, [2, L, N] of x and y (an F_p^2 element's
+    real and imaginary parts).  r_mul by c_out, then rns_to_limbs: on CUDA
+    tensors one launch of the exit kernel for both (ops/cuda_rns.py
+    rns_exit), on CPU tensors those torch ops."""
+    from ..ops import cuda_rns
+    halves = (x,) if y is None else (x, y)
+    for h in halves:
+        assert h.bound <= rns.h, (h.bound, rns.h)
+    out = cuda_rns.rns_exit(rns, *(h.v.contiguous() for h in halves))
+    return out[0] if y is None else out

@@ -88,9 +88,7 @@ def encrypted_dot_kernel(dev: PublicDeviceKey, x_pt: AffinePoint,
     zr, zi = rp.final_exponentiation_rns(ctx, rns, (RVal(fre, 9),
                                                     RVal(fim, 9)),
                                          dev.l_bits)
-    return torch.stack([rn.from_rns_mont(rns, zr).reshape((ctx.L,) + rest),
-                        rn.from_rns_mont(rns, zi).reshape((ctx.L,) + rest)],
-                       dim=0)
+    return rn.from_rns_mont(rns, zr, zi).reshape((2, ctx.L) + rest)
 
 
 def encrypted_dot(pk: BGNPublicKey, ct_x: Ciphertext,

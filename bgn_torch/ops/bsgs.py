@@ -324,8 +324,8 @@ def g1_rns_scan(ctx: MontCtx, rns, tables: DecryptTables, X, Y, Z, inf2,
     iw = rn.RVal(wide(zinv), 3)
     i2 = rn.r_mul(rns, iw, iw)
     i3 = rn.r_mul(rns, i2, iw)
-    xl = rn.from_rns_mont(rns, rn.r_mul(rns, rn.RVal(wide(Xs), 27), i2))
-    yl = rn.from_rns_mont(rns, rn.r_mul(rns, rn.RVal(wide(Ys), 27), i3))
+    xl, yl = rn.from_rns_mont(rns, rn.r_mul(rns, rn.RVal(wide(Xs), 27), i2),
+                              rn.r_mul(rns, rn.RVal(wide(Ys), 27), i3))
     mask4 = zmask.reshape(C, 2, B)
     xl = lb.select(mask4, torch.zeros_like(xl.reshape(L, C, 2, B)),
                    xl.reshape(L, C, 2, B))

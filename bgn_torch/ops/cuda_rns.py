@@ -1,5 +1,6 @@
-"""The RNS kernels of the port's paths (seven loop kernels and six step
-kernels), their wrappers and their plain PyTorch versions.
+"""The RNS kernels of the port's paths (seven loop kernels, six step
+kernels and the exit conversion), their wrappers and their plain PyTorch
+versions.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version (the step functions of ops/rns_pairing.py, under Python
@@ -40,6 +41,8 @@ Kernels (TPU kernel replaced -> CUDA source):
   pow_step      bgn_tpu/ops/pallas_rns.py:pow_step_pallas -> csrc/pow_step.cu
   fp2_pow_step  bgn_tpu/ops/pallas_rns.py:fp2_pow_step_pallas
                 -> csrc/fp2_pow_step.cu
+  rns_exit      none (the JAX package's from_rns_mont runs as XLA ops)
+                -> csrc/rns_exit.cu
 
 Every kernel is built for three slot counts S (channels per thread): S = 4
 for k <= 64 channels per base, S = 6 for k <= 96, which covers 1024-bit
@@ -182,6 +185,64 @@ def const_blob(rns: RNSCtx) -> torch.Tensor:
     out = torch.from_numpy(blob).to(dev)
     rns.kernel_blobs[dev] = out
     return out
+
+
+def exit_layout(k: int, L: int) -> dict:
+    """Word offsets of the exit kernel's blob (`exit_blob`; mirrored by
+    csrc/rns_exit.cu bgn_exit_layout): c_out [2k] and crt_inv_a [k] as
+    float32 bits, w_alpha [k] (RNSCtx.w_alpha_a), a_rows [d8] and p_limbs
+    [L + 1] as int32, then crt: byte d of A/a_i (RNSCtx.crt_rows[d, i])
+    at byte i * crt_stride + d of the words from offset crt."""
+    d8 = -(-(12 * k) // 8) + 1
+    off, o = {"d8": d8}, 0
+    for name, size in (("c_out", 2 * k), ("crt_inv_a", k), ("w_alpha", k),
+                       ("a_rows", d8), ("p_limbs", L + 1)):
+        off[name] = o
+        o += size
+    off["crt_stride"] = -(-d8 // 4) * 4
+    off["crt"] = o
+    off["words"] = o + k * off["crt_stride"] // 4
+    return off
+
+
+def exit_blob(rns: RNSCtx) -> torch.Tensor:
+    """The exit kernel's constants as one int32 tensor on rns's device,
+    cached on the context beside `const_blob`."""
+    dev = rns.m.device
+    key = ("exit", dev)
+    if key in rns.kernel_blobs:
+        return rns.kernel_blobs[key]
+    k, L = rns.k, rns.L
+    off = exit_layout(k, L)
+
+    def host(t):
+        return t.detach().cpu().numpy().reshape(-1)
+
+    crt_rows = rns.crt_rows.detach().cpu().numpy()
+    assert crt_rows.shape == (off["d8"], k), crt_rows.shape
+    blob = np.zeros(off["words"], dtype=np.int32)
+    f32 = blob.view(np.float32)
+    for name, vals in (("c_out", rns.c_out), ("crt_inv_a", rns.crt_inv_a)):
+        v = host(vals)
+        f32[off[name]:off[name] + v.size] = v
+    for name, vals in (("w_alpha", rns.w_alpha_a), ("a_rows", rns.a_rows),
+                       ("p_limbs", rns.p_limbs)):
+        v = host(vals).astype(np.int32)
+        blob[off[name]:off[name] + v.size] = v
+    blob[off["crt"]:].view(np.uint8).reshape(k, off["crt_stride"])[
+        :, :off["d8"]] = crt_rows.T
+    out = torch.from_numpy(blob).to(dev)
+    rns.kernel_blobs[key] = out
+    return out
+
+
+def kernel_consts(rns: RNSCtx) -> None:
+    """Build and cache every constant tensor the kernels read
+    (`const_blob`, `tc_planes`, `exit_blob`): the key build calls it for a
+    key on the card, so that no op uploads them."""
+    const_blob(rns)
+    tc_planes(rns)
+    exit_blob(rns)
 
 
 def tc_index(k: int):
@@ -841,6 +902,44 @@ def fp2_pow_step(rns: RNSCtx, ar, ai, xr, xi, bit: int):
 fp2_pow_step.launches = 0
 fp2_pow_step.launches_by_n = {}
 
+
+# ---------------------------------------------------------------------------
+# 14. The exit conversion: RNS Montgomery residues -> canonical limbs
+# ---------------------------------------------------------------------------
+
+
+def rns_exit_plain(rns: RNSCtx, x0, x1=None):
+    """The torch ops of fieldcore/rns.py's exit on each half: r_mul by
+    c_out, then rns_to_limbs' exact CRT.  x0, x1: residues [2k, N] (value
+    below h*p); returns int64 [halves, L, N], canonical limbs < p."""
+    c_out = RVal(rns.c_out.expand_as(x0), 1)
+    return torch.stack([rn.rns_to_limbs(rns, rn.r_mul(rns, RVal(x, 1), c_out))
+                        for x in ((x0,) if x1 is None else (x0, x1))])
+
+
+@profiling.traced("kernels", launches=True)
+def rns_exit(rns: RNSCtx, x0, x1=None):
+    """Wrapper: fieldcore/rns.py from_rns_mont's exit of one or two halves
+    (x1: an F_p^2 element's imaginary part) as one kernel launch on the
+    card, blocks of lanes whose product runs its base extensions on the
+    tensor cores (as pow_loop's), the CRT per warp (csrc/rns_exit.cu).
+    x0, x1: contiguous float32 [2k, N]; returns int64 [halves, L, N]."""
+    if _is_cpu(x0):
+        return rns_exit_plain(rns, x0, x1)
+    xs = (x0,) if x1 is None else (x0, x1)
+    n = _check_state(rns, *xs)
+    out = torch.empty((len(xs), rns.L, n), dtype=torch.int64,
+                      device=x0.device)
+    if n:
+        _launch("bgn_rns_exit", _ptr(const_blob(rns)), _ptr(tc_planes(rns)),
+                rns.k, slots_for(rns.k), _ptr(exit_blob(rns)), rns.L,
+                _ptr(xs[0]), _ptr(xs[-1]), _ptr(out), n, len(xs))
+        rns_exit.launches += 1
+    return out
+
+
+rns_exit.launches = 0
+
 WRAPPERS = (miller_loop, pow_loop, fp2_pow_loop, dual_ladder, ladder_loop,
             window_ladder_tab, window_ladder, dbl_step, add_step, pt_dbl,
-            pt_add, pow_step, fp2_pow_step)
+            pt_add, pow_step, fp2_pow_step, rns_exit)

@@ -263,8 +263,7 @@ def normalize_rns(ctx: MontCtx, rns: RNSCtx, X, Y, Z) -> AffinePoint:
     zinv3 = rn.r_mul(rns, zinv2, zinv)
     x = rn.r_mul(rns, RVal(X, _BX), zinv2)
     y = rn.r_mul(rns, RVal(Y, _BY), zinv3)
-    xl = rn.from_rns_mont(rns, x)
-    yl = rn.from_rns_mont(rns, y)
+    xl, yl = rn.from_rns_mont(rns, x, y)
     zero = torch.zeros_like(xl)
     xl = torch.where(dead[None], zero, xl)
     yl = torch.where(dead[None], zero, yl)
@@ -302,8 +301,9 @@ def add_complete_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint,
     Xa, Ya, Za = _add_pt(rns, axr.v, ayr.v, one, bxr, byr)
     Xd, Yd, Zd = _dbl_pt(rns, axr.v, ayr.v, one)
 
-    h_zero = lb.is_zero(rn.from_rns_mont(rns, rn.r_sub(rns, bxr, axr)))
-    r_zero = lb.is_zero(rn.from_rns_mont(rns, rn.r_sub(rns, byr, ayr)))
+    hl, rl = rn.from_rns_mont(rns, rn.r_sub(rns, bxr, axr),
+                              rn.r_sub(rns, byr, ayr))
+    h_zero, r_zero = lb.is_zero(hl), lb.is_zero(rl)
     a_inf, b_inf = a.inf.reshape(-1), b.inf.reshape(-1)
     live = (1 - a_inf) * (1 - b_inf)
     same = h_zero & r_zero & live
@@ -513,10 +513,8 @@ def fp2_pow_vec_rns(ctx: MontCtx, rns: RNSCtx, z, bits):
         assert mu[0].bound <= 9 and mu[1].bound <= 9
         ar = torch.where(b[None], mu[0].v, sq[0].v)
         ai = torch.where(b[None], mu[1].v, sq[1].v)
-    shape = (ctx.L,) + batch_shape
-    return torch.stack([rn.from_rns_mont(rns, RVal(ar, 9)).reshape(shape),
-                        rn.from_rns_mont(rns, RVal(ai, 9)).reshape(shape)],
-                       dim=0)
+    return rn.from_rns_mont(rns, RVal(ar, 9), RVal(ai, 9)).reshape(
+        (2, ctx.L) + batch_shape)
 
 
 def fp2_pow_rns(ctx: MontCtx, rns: RNSCtx, z, digits, unitary=False,
@@ -529,8 +527,7 @@ def fp2_pow_rns(ctx: MontCtx, rns: RNSCtx, z, digits, unitary=False,
                            unitary=unitary)
     if raw:
         return wr, wi
-    return torch.stack([rn.from_rns_mont(rns, wr),
-                        rn.from_rns_mont(rns, wi)], dim=0)
+    return rn.from_rns_mont(rns, wr, wi)
 
 
 def final_exponentiation_rns(ctx: MontCtx, rns: RNSCtx, f, l_bits):
@@ -580,6 +577,4 @@ def pairing_rns(ctx: MontCtx, rns: RNSCtx, a: AffinePoint, b: AffinePoint,
     f, batch_shape = _miller_f_rns(ctx, rns, a, b, n_digits)
     zr, zi = final_exponentiation_rns(ctx, rns, f, l_bits)
     with profiling.span("glue.from_rns"):
-        out_re = rn.from_rns_mont(rns, zr).reshape((ctx.L,) + batch_shape)
-        out_im = rn.from_rns_mont(rns, zi).reshape((ctx.L,) + batch_shape)
-        return torch.stack([out_re, out_im], dim=0)
+        return rn.from_rns_mont(rns, zr, zi).reshape((2, ctx.L) + batch_shape)

@@ -176,8 +176,7 @@ def pairing_pipeline(dev, a, b, mesh, microbatches: int):
         outs.append(torch.stack([zr.v, zi.v]))
     if s == S - 1:
         z = torch.cat(outs, dim=-1)    # [2, 2k, B], microbatch-major lanes
-        out = torch.stack([rn.from_rns_mont(rns, RVal(z[0], rp._BF)),
-                           rn.from_rns_mont(rns, RVal(z[1], rp._BF))])
+        out = rn.from_rns_mont(rns, RVal(z[0], rp._BF), RVal(z[1], rp._BF))
     else:
         out = torch.empty((2, ctx.L, B), dtype=torch.int64, device=device)
     dist.broadcast(out, src=ranks[S - 1], group=group)

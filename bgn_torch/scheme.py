@@ -576,13 +576,17 @@ def _make_rns(p: int, L: int, device) -> RNSCtx | None:
     instantiated there).  The rule is the same on every device.  Without
     a context pairing.use_rns is false, so every op takes its limb branch
     (the one rns_miller="0" runs); values are canonical, so the results
-    are those of the RNS path."""
+    are those of the RNS path.  On the card the kernels' constants are
+    uploaded here, with the key, so that no op uploads them."""
     try:
         if rn.select_channels(p)[2] > cuda_rns.K_KERNEL_MAX:
             return None
-        return rn.make_rns_ctx(p, L=L, device=device)
+        rns = rn.make_rns_ctx(p, L=L, device=device)
     except ValueError:
         return None
+    if rns.m.is_cuda:
+        cuda_rns.kernel_consts(rns)
+    return rns
 
 
 def _window_table(base, p: int, key_bits: int) -> list:

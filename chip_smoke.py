@@ -16,7 +16,7 @@ Phases, each of which raises on failure (the script then exits nonzero):
      digit-domain Miller step kernels (the register form for W = 17 and
      32 words, G threads per lane, and the loop form for any other L);
      the count of
-     tensor-core IMMA instructions in the SASS of the thirteen RNS
+     tensor-core IMMA instructions in the SASS of the fourteen RNS
      kernels, every one on the tensor-core product (TC_KERNELS: blocks of
      G lanes, base extensions on the tensor cores: csrc/rns_tc.cuh) for
      each S, which must be > 0, and their shared memory per block;
@@ -72,7 +72,11 @@ Phases, each of which raises on failure (the script then exits nonzero):
      form), and in the loop form at L = 35 (a 540-bit prime) and L = 6 (a
      64-bit prime) at N = 512; at the synthesized 64-bit key of phase
      4j's conformance vectors, dual_ladder at N = 8, 7 and 1 over the
-     vectors' (m, r) and pow_loop at N = 7 and 1;
+     vectors' (m, r) and pow_loop at N = 7 and 1; the exit conversion
+     rns_exit (both halves in one launch: to_rns_mont's outputs, whose
+     limbs it must give back, first lanes 0, 1 and p - 1, and their
+     doubles) against its plain version, the torch-op exit, at N = batch
+     (512-bit), and in 4c at N = EXIT_N_1024 and in 4e at N = big-batch;
   4. the main path end to end: Encrypt (batch of m < 340 and k in
      {1, 2, 3}) -> Mult -> DecryptL2 (decrypt-batch lanes at a time, every
      lane of the batch), every decrypted value checked against m*k and a
@@ -302,7 +306,7 @@ STEP_PATH = ("dbl_step", "add_step", "pt_dbl", "pt_add", "pow_step",
 LOOP_ONLY = ("miller_loop", "fp2_pow_loop", "ladder_loop", "dual_ladder",
              "window_ladder_tab")
 # the limb-domain configuration: the digit-domain Miller steps and
-# mont_mul, and none of the 13 RNS kernels
+# mont_mul, and none of the 14 RNS kernels
 DIGIT_PATH = ("miller_dbl_digits", "miller_add_digits", "mont_mul")
 # the poly path, its serialization and the models (phase 4i): the
 # kernels of Encrypt (dual_ladder), Mult (miller_loop, pow_loop,
@@ -327,6 +331,9 @@ GOB_POLYS = 4
 # encrypted_dot over DOT_D coordinates of DOT_B vectors
 POLY_B = 512
 DOT_D, DOT_B = 64, 128
+# the exit conversion's lanes at the 1024-bit key: the bgn1024-det.mult
+# benchmark cell's batch
+EXIT_N_1024 = 2112
 # polys decrypted of each op's result on the 100.1 batch (all B alike);
 # the batch itself, MultPoly's result and the 7.0 and integer batches
 # are decrypted whole
@@ -339,7 +346,7 @@ ONE_CALL_4D = ("AddL2", "SubL2", "MultConst n-1", "MultConstL2")
 TC_KERNELS = ("miller_loop", "ladder_loop", "pow_loop", "fp2_pow_loop",
               "dual_ladder", "window_ladder_tab", "window_ladder",
               "dbl_step", "add_step", "pt_dbl", "pt_add", "pow_step",
-              "fp2_pow_step")
+              "fp2_pow_step", "rns_exit")
 # lanes per block of the tensor-core kernels (rns_tc.cuh TcLanes<S>::G)
 TC_G = 8
 # the launch splits a wrapper may keep beside its count: by N, and
@@ -775,6 +782,30 @@ def main() -> None:
             first = out if first is None else first
         return first
 
+    def exit_check(pk, n, seed):
+        """rns_exit, both halves in one launch, against rns_exit_plain at
+        n lanes: to_rns_mont's outputs (bound 3; first lanes 0, 1 and
+        p - 1), whose limbs the first half must give back, and their
+        doubles (bound 6); then its time against its bound."""
+        ctx, rns = pk.dev.ctx, pk.dev.rns
+        k, L = rns.k, ctx.L
+        erng = random.Random(seed)
+        vals = [0, 1, pk.p - 1] + [erng.randrange(pk.p) for _ in range(n)]
+        limbs = torch.as_tensor(lb.ints_to_limbs(vals[:n], L), device=dev)
+        x0 = rn.to_rns_mont(rns, limbs)
+        xs = (x0.v.contiguous(), rn.r_add(rns, x0, x0).v.contiguous())
+        e, mm = ops_of(k, {"r_mul": 1})
+        d8 = cuda_rns.exit_layout(k, L)["d8"]
+        out = check("rns_exit", f"N={n}, 2 halves",
+                    lambda: cuda_rns.rns_exit(rns, *xs),
+                    lambda: cuda_rns.rns_exit_plain(rns, *xs),
+                    (2 * n * e, 2 * n * mm, 2 * n * k * d8),
+                    2 * n * (2 * k * f32 + L * 8), pk.key_bits)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0][0], limbs):
+            raise AssertionError(f"rns_exit N={n} ({pk.key_bits}-bit): "
+                                 "to_rns_mont's limbs not given back")
+
     def kernel_checks(pk, sk, B, Bd, seed, trunc=None):
         """Each kernel at the shapes the paths give it for this key:
         dual_ladder, window_ladder_tab (also at B - 1 and 1; also on
@@ -1125,6 +1156,7 @@ def main() -> None:
                   key_bits)
 
     kernel_checks(pk, sk, B, Bd, args.seed + 1)
+    exit_check(pk, B, args.seed + 10)
 
     # dual_ladder at the proof-of-knowledge prover's shape (phase 4j): one
     # batch of Bd lanes of m < 340 with r < n, then Bd nonces m < n with
@@ -1432,6 +1464,7 @@ def main() -> None:
         f"(S = {cuda_rns.slots_for(k2)}), L = {pk2.dev.ctx.L} limbs, "
         f"{t_keys['1024 (phase 4c)']:.1f} s")
     kernel_checks(pk2, sk2, 64, 64, args.seed + 3)
+    exit_check(pk2, EXIT_N_1024, args.seed + 11)
     Bw = args.wide_batch
     wrng = random.Random(args.seed + 4)
     ms2 = [wrng.randrange(340) for _ in range(Bw)]
@@ -1604,6 +1637,7 @@ def main() -> None:
         f"{time.time() - t0:.1f} s")
     Bb = args.big_batch
     kernel_checks(pk3, sk3, Bb, Bb, args.seed + 6, trunc=32)
+    exit_check(pk3, Bb, args.seed + 12)
     brng = random.Random(args.seed + 7)
     ms3 = [brng.randrange(340) for _ in range(Bb)]
     ks3 = [brng.randrange(1, 4) for _ in range(Bb)]
@@ -1792,7 +1826,7 @@ def main() -> None:
     if rns_launched:
         raise AssertionError(f"RNS kernels launched in limb mode: "
                              f"{rns_launched}")
-    log("limb mode: no launch of the 13 RNS kernels")
+    log("limb mode: no launch of the 14 RNS kernels")
     _, t_enc_g2 = timed(lambda: pk.encrypt_with_randomness(ms, rs))
     _, t_mult_g2 = timed(lambda: pk.mult(a_g, b_g))
     _, t_dec_g2 = timed(lambda: sk.decrypt(prod_g[:Bd], pk, tables))
@@ -1847,7 +1881,7 @@ def main() -> None:
         raise AssertionError(f"RNS kernels launched for a key without an "
                              f"RNS context: {rns_launched}")
     log(f"no-RNS key: Encrypt and Mult equal phase 4g's limb-mode outputs "
-        f"on {Bn} lanes; no launch of the 13 RNS kernels")
+        f"on {Bn} lanes; no launch of the 14 RNS kernels")
     for op, t in (("Encrypt", t_enc_h), ("Mult", t_mult_h),
                   ("DecryptL2", t_dec_h)):
         log(f"no-RNS key {op} {Bn / t:.1f} ops/s first call (B={Bn}) "

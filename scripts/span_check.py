@@ -7,8 +7,10 @@ For each key size (a key drawn from --seed, a batch of L1 pairs
 encrypted, one Mult to warm up):
   1. one Mult under torch.cuda.set_sync_debug_mode("warn") with the
      spans recorded: every synchronizing call it warns of must lie inside
-     a wait.* span; the sites are listed (also for the first, cold Mult,
-     whose one-time uploads of the kernels' constants are set-up);
+     a wait.* span; the sites are listed (also for the first, cold Mult);
+     the host-to-device copies of the cold Mult and of a warm one (the
+     kernels' constants go up with the key, so none), and the launches of
+     the exit kernel in a warm Mult (one);
   2. an L1 and an L2 decrypt of 64 lanes, likewise;
   3. whether a torch.profiler with CUDA activity alone, as the benchmark
      traces, turns the tracer on;
@@ -35,7 +37,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 from bgn_torch import scheme  # noqa: E402
+from bgn_torch.ops import cuda_rns  # noqa: E402
 from bgn_torch.utils import profiling  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 
 def card() -> str:
@@ -82,6 +86,11 @@ def syncs_of(fn):
         names
 
 
+def uploads(prof) -> int:
+    """Host-to-device copies a CUDA-activity profile recorded."""
+    return sum(e.count for e in prof.key_averages() if "HtoD" in e.key)
+
+
 def outside(found) -> list:
     return [f for f in found if not (f[0] or "").startswith("wait.")]
 
@@ -108,8 +117,12 @@ def check_key(bits: int, batch: int, seed: int) -> dict:
     torch.cuda.synchronize()
     res = {"bits": bits, "batch": batch,
            "setup_s": round(time.perf_counter() - t, 3)}
-    _, cold, _ = syncs_of(lambda: pk.mult(a, b))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, cold, _ = syncs_of(lambda: pk.mult(a, b))
+    res["mult_cold_uploads"] = uploads(prof)
+    exits = cuda_rns.rns_exit.launches
     out, warm, names = syncs_of(lambda: pk.mult(a, b))
+    res["mult_rns_exit_launches"] = cuda_rns.rns_exit.launches - exits
     res["mult_cold_syncs"] = cold
     res["mult_syncs"] = warm
     res["mult_spans"] = dict(names)
@@ -122,12 +135,12 @@ def check_key(bits: int, batch: int, seed: int) -> dict:
         got, found, _ = syncs_of(lambda: sk.decrypt(ct, pk, tables))
         res[f"decrypt_{level}_syncs"] = found
         res[f"decrypt_{level}_right"] = [int(v) for v in got] == want
-    from torch.profiler import ProfilerActivity, profile
     profiling.clear()
-    with profile(activities=[ProfilerActivity.CUDA]):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         on = profiling._profiler_enabled()
         pk.mult(a, b)
         torch.cuda.synchronize()
+    res["mult_uploads"] = uploads(prof)
     res["cuda_only_profiler_turns_on"] = on
     res["cuda_only_profiler_spans"] = len(profiling.spans())
     profiling.clear()

@@ -103,8 +103,9 @@ def test_wrappers_count_and_dispatch_cpu_to_plain():
         (cuda_rns.pow_step, cuda_rns.pow_step_plain, (ctx, x, y, 1)),
         (cuda_rns.fp2_pow_step, cuda_rns.fp2_pow_step_plain,
          (ctx, x, y, y, x, 1)),
+        (cuda_rns.rns_exit, cuda_rns.rns_exit_plain, (ctx, x, y)),
     ]
-    assert len(cuda_rns.WRAPPERS) == 13
+    assert len(cuda_rns.WRAPPERS) == 14
     assert set(cuda_rns.WRAPPERS) == {c[0] for c in calls}
     for wrapper, plain, args in calls:
         assert isinstance(wrapper.launches, int)

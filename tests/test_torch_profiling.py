@@ -35,7 +35,7 @@ READERS = ("scheme.host_waits_per_request", "scheme.idle_ms_per_request",
 MULT_LAYERS = {"pairing.miller", "pairing.final_exp", "glue.to_rns",
                "glue.fp2", "glue.from_rns", "glue.select",
                "kernels.miller_loop", "kernels.pow_loop",
-               "kernels.fp2_pow_loop"}
+               "kernels.fp2_pow_loop", "kernels.rns_exit"}
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,8 @@ seven of eight warps on zeros; n = 13: a short last block), equal to the
 plain steps at every step (pow_step's and fp2_pow_step's chains are
 test_torch_pow_tc.py's, dual_ladder's and window_ladder_tab's
 test_torch_dual_tc.py's, window_ladder's test_torch_window_tc.py's).  The
-nine sources, and the compute-then-select window chains that
+nine sources and csrc/rns_exit.cu, and the compute-then-select window
+chains that
 dual_ladder.cu and window_ladder_tab.cu (rns.cuh win_chain_sel) and
 window_ladder.cu (win_chain_rows) run, are read for the deadlock of a
 block-wide product (a warp that returns, continues or breaks before the
@@ -55,6 +56,8 @@ KERNELS = {
                           "bgn_window_ladder_tab"),
     "window_ladder": ("window_ladder.cu", "bgn_window_ladder_kernel",
                       r"win_chain_rows<S, MulTc<S>>\(", "bgn_window_ladder"),
+    "rns_exit": ("rns_exit.cu", "bgn_rns_exit_kernel", r"r_mul_tc<S>\(",
+                 "bgn_rns_exit"),
 }
 # device functions with products that a kernel above calls through the
 # tensor-core policy: (header, function, its products)
